@@ -1,0 +1,309 @@
+"""AttentionFontRenderer in PyTorch: char codes -> pixel sheet (eval only).
+
+The port of ai_font_renderer_tpu/models/font_renderer.py, linear decoder:
+
+    embed(128->32) + learned positions [100, 32]
+    -> MHA(4 heads) -> residual + post-LayerNorm   (x num_blocks)
+    -> ReLU(Linear 32->64) -> flatten 6400 (short sequences zero-padded)
+    -> Linear 6400->19200 -> reshape [80, 240] -> clamp(0, 1)
+
+Parameters keep the JAX package's layout at every public function: one
+flat dict with its key names, weights as [in, out], separate wq/wk/wv, so a
+JAX-initialised dict carried across by :func:`params_from_jax` makes
+:func:`apply` compute what ``font_renderer.apply`` computes.
+:class:`AttentionFontRenderer` is the same thing as an ``nn.Module`` whose
+parameters carry those names.
+
+This slice serves: ``train=True`` (dropout) and the conv decoders raise
+``NotImplementedError`` and name the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..device import resolve_device
+from ..ops.fused_attention import KEYS as ATTN_KEYS
+from ..ops.fused_attention import fused_attention, fused_attention2, fused_attention_reference
+from ..ops.fused_output import fused_output
+
+_TRAIN_SLICE = "training (dropout, backward) comes with the training slice of the port"
+
+
+def _conv_not_ported(cfg: ModelConfig) -> None:
+    if cfg.decoder != "linear":
+        raise NotImplementedError(
+            f"decoder={cfg.decoder!r}: the conv decoders come with a later "
+            "slice of the port (ROADMAP queue 1, item 8); only 'linear' runs"
+        )
+
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return (u * 2.0 - 1.0) * bound
+
+
+def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def init(
+    generator: torch.Generator,
+    cfg: ModelConfig = ModelConfig(),
+    device: str | torch.device | None = None,
+) -> dict[str, torch.Tensor]:
+    """Initialise parameters with the JAX package's distributions (torch's
+    module defaults): N(0,1) embedding, N(0, pos_init_std) positions,
+    xavier-uniform q/k/v, U(+-1/sqrt(fan_in)) for the other weights, zero
+    attention biases, unit LayerNorm scale. The numbers differ from JAX's
+    threefry draws; the distributions do not. Draws run on the generator's
+    device and land on ``device``."""
+    _conv_not_ported(cfg)
+    dev = resolve_device(device)
+    e, h = cfg.embedding_dim, cfg.hidden_dim
+    flat = cfg.max_length * h
+    pixels = cfg.sheet_height * cfg.sheet_width
+    xavier = (6.0 / (e + e)) ** 0.5
+    g = generator
+
+    def zeros(n):
+        return torch.zeros(n, device=g.device)
+
+    params = {
+        "embedding": _normal(g, (cfg.vocab_size, e)),
+        "pos": cfg.pos_init_std * _normal(g, (cfg.max_length, e)),
+        "wq": _uniform(g, (e, e), xavier),
+        "wk": _uniform(g, (e, e), xavier),
+        "wv": _uniform(g, (e, e), xavier),
+        "bq": zeros(e),
+        "bk": zeros(e),
+        "bv": zeros(e),
+        "wo": _uniform(g, (e, e), 1.0 / e**0.5),
+        "bo": zeros(e),
+        "ln_scale": torch.ones(e, device=g.device),
+        "ln_bias": zeros(e),
+        "fc1_w": _uniform(g, (e, h), 1.0 / e**0.5),
+        "fc1_b": _uniform(g, (h,), 1.0 / e**0.5),
+    }
+    for i in range(1, cfg.num_blocks):
+        params[f"wq_b{i}"] = _uniform(g, (e, e), xavier)
+        params[f"wk_b{i}"] = _uniform(g, (e, e), xavier)
+        params[f"wv_b{i}"] = _uniform(g, (e, e), xavier)
+        params[f"wo_b{i}"] = _uniform(g, (e, e), 1.0 / e**0.5)
+        for b in ("bq", "bk", "bv", "bo", "ln_bias"):
+            params[f"{b}_b{i}"] = zeros(e)
+        params[f"ln_scale_b{i}"] = torch.ones(e, device=g.device)
+    params["out_w"] = _uniform(g, (flat, pixels), 1.0 / flat**0.5)
+    params["out_b"] = _uniform(g, (pixels,), 1.0 / flat**0.5)
+    return {k: v.to(dev) for k, v in params.items()}
+
+
+def param_count(params: Mapping[str, torch.Tensor]) -> int:
+    return sum(p.numel() for p in params.values())
+
+
+def params_from_jax(
+    flat: Mapping[str, np.ndarray], device: str | torch.device | None = None
+) -> dict[str, torch.Tensor]:
+    """A JAX parameter dict (numpy arrays, or anything ``np.asarray``
+    takes) -> torch tensors on ``device``. The layouts are the same, so this
+    is a copy per leaf with dtype and shape kept."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, copy=True)).to(dev) for k, v in flat.items()}
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of :func:`params_from_jax`: host numpy arrays per key."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def infer_model_config(params: Mapping, base: ModelConfig = ModelConfig()) -> ModelConfig:
+    """Recover architecture hyperparameters from a weight dict that carries
+    no ``__config__`` entry (same rules as the JAX package): vocab/embed
+    from the embedding, max_length from the positions, hidden width from
+    fc1, depth from the ``wq_b{i}`` keys, the decoder family from the dec_*
+    keys. num_heads is not recoverable from shapes; a non-default embedding
+    width assumes 8-wide heads."""
+    kw: dict = {}
+    v, e = params["embedding"].shape
+    kw["vocab_size"] = int(v)
+    kw["embedding_dim"] = int(e)
+    kw["max_length"] = int(params["pos"].shape[0])
+    kw["hidden_dim"] = int(params["fc1_w"].shape[1])
+    n_blocks = 1
+    while f"wq_b{n_blocks}" in params:
+        n_blocks += 1
+    if n_blocks > 1:
+        kw["num_blocks"] = n_blocks
+    if int(e) != base.embedding_dim:
+        kw["num_heads"] = max(1, int(e) // 8)
+        print(
+            f"Warning: inferring num_heads={kw['num_heads']} from "
+            f"embedding_dim={e} (8-dim heads assumed) — shapes cannot "
+            "determine the head count. Re-save the weights with "
+            "save_params(params, path, mcfg) to embed the exact config."
+        )
+    if "dec_w0" in params:
+        n = 0
+        while f"dec_w{n}" in params:
+            n += 1
+        chans = [int(params[f"dec_w{i}"].shape[2]) for i in range(n)]
+        chans.append(int(params["dec_out_w"].shape[2]))
+        is_resize = all(
+            int(params[f"dec_w{i}"].shape[3]) == chans[i + 1] for i in range(n)
+        )
+        kw["decoder"] = "conv" if is_resize else "conv_ps"
+        kw["decoder_channels"] = tuple(chans)
+        gh, gw = base.decoder_grid
+        ml = kw["max_length"]
+        if gh * gw != ml:
+            target = base.sheet_height / base.sheet_width
+            pairs = [(d, ml // d) for d in range(1, ml + 1) if ml % d == 0]
+            gh, gw = min(pairs, key=lambda p: abs(p[0] / p[1] - target))
+            kw["decoder_grid"] = (gh, gw)
+    else:
+        kw["decoder"] = "linear"
+    return dataclasses.replace(base, **kw)
+
+
+def attention(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Multi-head self-attention, x [B, S, E] -> [B, S, E] (eval: no
+    dropout). Softmax statistics are f32 whatever x's dtype."""
+    return fused_attention_reference(x, params, cfg.num_heads)
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    mean = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def features(
+    params: Mapping[str, torch.Tensor],
+    codes: torch.Tensor,
+    cfg: ModelConfig = ModelConfig(),
+    *,
+    train: bool = False,
+) -> torch.Tensor:
+    """codes [B, S] -> per-slot features [B, min(S, max_length), hidden]."""
+    if train:
+        raise NotImplementedError(_TRAIN_SLICE)
+    S = min(codes.shape[1], cfg.max_length)
+    codes = codes[:, :S].long()
+    dt = torch.bfloat16 if cfg.bf16_frontend else torch.float32
+
+    x = params["embedding"].to(dt)[codes]  # [B, S, E]
+    x = x + params["pos"].to(dt)[:S]
+
+    weights = {k: params[k] for k in ATTN_KEYS}
+    if cfg.fused_attention_v2:
+        attn = fused_attention2(x, weights, cfg.num_heads)
+    elif cfg.fused_attention:
+        attn = fused_attention(x, weights, cfg.num_heads)
+    else:
+        attn = attention(params, x, cfg)
+    # LayerNorm statistics in f32 even under a bf16 frontend.
+    x = _layer_norm((x + attn).float(), params["ln_scale"], params["ln_bias"]).to(dt)
+
+    # Extra blocks use the plain attention, as in the JAX package, whose
+    # fused kernels cover block 0 only.
+    for i in range(1, cfg.num_blocks):
+        sub = {k: params[f"{k}_b{i}"] for k in ATTN_KEYS}
+        a = attention(sub, x, cfg)
+        x = _layer_norm(
+            (x + a).float(), params[f"ln_scale_b{i}"], params[f"ln_bias_b{i}"]
+        ).to(dt)
+
+    return torch.relu(x @ params["fc1_w"].to(dt) + params["fc1_b"].to(dt))
+
+
+def frontend(
+    params: Mapping[str, torch.Tensor],
+    codes: torch.Tensor,
+    cfg: ModelConfig = ModelConfig(),
+    *,
+    train: bool = False,
+) -> torch.Tensor:
+    """Everything before the output projection: codes -> flat [B, 6400] f32,
+    short sequences zero-padded to max_length * hidden_dim."""
+    B = codes.shape[0]
+    flat = features(params, codes, cfg, train=train).float().reshape(B, -1)
+    full = cfg.max_length * cfg.hidden_dim
+    if flat.shape[1] < full:
+        flat = torch.nn.functional.pad(flat, (0, full - flat.shape[1]))
+    return flat
+
+
+def apply(
+    params: Mapping[str, torch.Tensor],
+    codes: torch.Tensor,
+    cfg: ModelConfig = ModelConfig(),
+    *,
+    train: bool = False,
+) -> torch.Tensor:
+    """Forward pass: int codes [B, <=max_length] -> sheets [B, H, W] in [0, 1]."""
+    if train:
+        raise NotImplementedError(_TRAIN_SLICE)
+    _conv_not_ported(cfg)
+    B = codes.shape[0]
+    flat = frontend(params, codes, cfg)
+    if cfg.use_pallas_output:
+        if cfg.leaky_clamp > 0.0 or cfg.bf16_cotangent:
+            raise ValueError(
+                "use_pallas_output hard-clamps inside the kernel and owns "
+                "its own VJP; it cannot combine with leaky_clamp or "
+                "bf16_cotangent"
+            )
+        sheet = fused_output(flat, params["out_w"], params["out_b"])
+        return sheet.reshape(B, cfg.sheet_height, cfg.sheet_width)
+    if cfg.bf16_cotangent and not cfg.bf16_matmul:
+        raise ValueError(
+            "bf16_cotangent runs the forward projection in bf16 too; "
+            "it cannot combine with bf16_matmul=False (strict-f32 "
+            "parity mode)"
+        )
+    w = params["out_w"]
+    if cfg.bf16_matmul:
+        # bf16 operands, f32 sums: a bf16 x bf16 product is exact in f32.
+        flat, w = flat.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+    sheet = flat @ w + params["out_b"]
+    return _clamp(sheet.reshape(B, cfg.sheet_height, cfg.sheet_width))
+
+
+def _clamp(x: torch.Tensor) -> torch.Tensor:
+    """The [0, 1] output clamp of eval and inference."""
+    return x.clamp(0.0, 1.0)
+
+
+class AttentionFontRenderer(nn.Module):
+    """The model as an ``nn.Module``. Each parameter is registered under its
+    JAX key name (``wq``, ``out_w``, ``wq_b1``, ...), so ``state_dict()`` is
+    the flat dict of the JAX package."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor], cfg: ModelConfig = ModelConfig()):
+        super().__init__()
+        self.cfg = cfg
+        for k, v in params.items():
+            self.register_parameter(k, nn.Parameter(v.detach(), requires_grad=False))
+
+    def params(self) -> dict[str, torch.Tensor]:
+        return dict(self.named_parameters())
+
+    def load_jax_params(self, flat: Mapping[str, np.ndarray]) -> None:
+        """Copy a JAX parameter dict (same keys and shapes) into this module."""
+        own = self.params()
+        if set(flat) != set(own):
+            raise KeyError(f"key mismatch: {sorted(set(flat) ^ set(own))}")
+        dev = next(iter(own.values())).device
+        with torch.no_grad():
+            for k, v in params_from_jax(flat, dev).items():
+                own[k].copy_(v)
+
+    def forward(self, codes: torch.Tensor) -> torch.Tensor:
+        return apply(self.params(), codes, self.cfg)

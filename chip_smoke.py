@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check what comes out.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+
+1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
+   the port from csrc/ (one nvcc per source, all at once), with the build
+   time.
+2. Each kernel against its plain PyTorch version on the card, at the shapes
+   the serving path gives it: max abs error against the stated tolerance,
+   and times from CUDA events for the kernel, the plain version, one
+   PyTorch library call computing the same function (a yardstick the port
+   never calls), and the least time the card could take (bytes over
+   3.35 TB/s or operations over the peak rate of their type).
+3. Render, the main path: full-width (123M-parameter) weights from a seed,
+   saved and loaded through the port's npz format, the 15 test strings
+   rendered to BMPs with both kernels on, the sheets checked against the
+   plain path on the same weights, then a 4096-sheet atlas timed in
+   glyphs/s.
+4. Serve: a RenderServer on a unix socket (batch 64, v2 attention, bf16
+   frontend) answers 3 requests of different lengths, one longer than a
+   batch; the replies must equal a direct render of the same strings.
+5. One JSON line listing every kernel with its launches on the main path
+   (phases 3 and 4; counts are set to 0 just before each phase and read
+   just after), its error and its times.
+
+The last line of output is {"ok": true, "device": {...}}. Without a CUDA
+device, or without the package beside this script, it exits non-zero and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): the bounds below are
+# stated against these, beside the card's own power limit.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_CUDA_CORE_FLOPS = 67e12
+
+K1_TOL = 1e-4  # f32 sums over K = 6400 of exact bf16 products, in another order
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}  # bf16: one rounding of O(1) values
+SHEET_TOL = 1e-4  # rendered sheets, kernels on vs the plain path (f32 frontend)
+# About 0.15 s at the H100's clock: longer than the host takes to queue one
+# timing loop, so the timed calls run back to back on the device.
+SPIN_CYCLES = 300_000_000
+
+
+def _nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` per call over ``iters`` calls, from CUDA
+    events after ``warmup`` calls. A spin kernel first holds the stream
+    while the host queues every call, so the events time the device's work
+    alone and not the pace of the host's Python."""
+    for _ in range(warmup):
+        fn()
+    while True:
+        torch.cuda.synchronize()
+        spin = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if queued_ms < spin.elapsed_time(start):
+            return start.elapsed_time(end) / iters
+        # The host waited for the spin: a stream holds about a thousand
+        # pending launches, and a plain version of many small ops fills
+        # that queue. Queue fewer calls.
+        if iters <= 4:
+            raise RuntimeError(f"the host needs {queued_ms:.0f} ms to queue {iters} calls")
+        iters //= 2
+
+
+def _bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_build() -> float:
+    from ai_font_renderer_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build()
+    seconds = time.perf_counter() - t0
+    for name, log in reports.items():
+        regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
+        print(f"[build] {name}.cu: " + " | ".join(regs), flush=True)
+    print(f"[build] kernels built in {seconds:.2f} s", flush=True)
+    return seconds
+
+
+def check_fused_output(ms_list=(15, 64, 1024), k=6400, n=19200) -> list[dict]:
+    """K1 vs its plain version at the serving path's row counts."""
+    from ai_font_renderer_tpu_torch.ops.fused_output import fused_output, fused_output_reference
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bound = 1.0 / k**0.5
+    w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) * bound
+    b = (torch.rand(n, generator=g, device="cuda") * 2 - 1) * bound
+    w16 = w.to(torch.bfloat16)
+    rows = []
+    for m in ms_list:
+        x = torch.relu(torch.randn(m, k, generator=g, device="cuda"))
+        got = fused_output(x, w, b)
+        want = fused_output_reference(x, w, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= K1_TOL:
+            raise AssertionError(f"fused_output M={m}: max abs err {err} > {K1_TOL}")
+        iters = 20 if m < 256 else 10
+        bytes_moved = 4 * (m * k + k * n + n + m * n)
+        bound_ms, bound_by = _bound(bytes_moved, 2 * m * k * n, BF16_TENSOR_FLOPS)
+        x16 = x.to(torch.bfloat16)
+        row = {
+            "shape": f"M={m},K={k},N={n}",
+            "max_abs_err": err,
+            "tol": K1_TOL,
+            "ms": time_ms(lambda: fused_output(x, w, b), iters),
+            "plain_ms": time_ms(lambda: fused_output_reference(x, w, b), max(3, iters // 4)),
+            # cuBLAS bf16 GEMM with the bias in its epilogue and f32 out,
+            # W cast to bf16 once outside the timed region, then the clamp.
+            "library_ms": time_ms(
+                lambda: torch.addmm(b, x16, w16, out_dtype=torch.float32).clamp_(0.0, 1.0), iters
+            ),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        print(f"[K1 fused_output] {json.dumps(row)}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def _attn_weights(g, e=32):
+    xavier = (6.0 / (e + e)) ** 0.5
+
+    def u(shape, bound):
+        return (torch.rand(shape, generator=g, device="cuda") * 2 - 1) * bound
+
+    w = {k: u((e, e), xavier) for k in ("wq", "wk", "wv")}
+    w["wo"] = u((e, e), 1.0 / e**0.5)
+    w.update({k: u((e,), 0.1) for k in ("bq", "bk", "bv", "bo")})
+    return w
+
+
+def check_fused_attention(batches=(15, 64, 1024), s=100, e=32, heads=4) -> list[dict]:
+    """The attention kernel vs its plain version, f32 and bf16, through both
+    entry points (one kernel); each dtype is timed through the entry point
+    the main path uses for it: v1 in f32 (render), v2 in bf16 (serve)."""
+    from ai_font_renderer_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention2,
+        fused_attention_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    w = _attn_weights(g, e)
+    in_w = torch.cat([w["wq"].T, w["wk"].T, w["wv"].T]).contiguous()
+    in_b = torch.cat([w["bq"], w["bk"], w["bv"]])
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        lib_w = (in_w.to(dt), in_b.to(dt), w["wo"].T.contiguous().to(dt), w["bo"].to(dt))
+        fn = fused_attention if dt == torch.float32 else fused_attention2
+        for bsz in batches:
+            x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
+            got = fused_attention(x, w, heads)
+            got2 = fused_attention2(x, w, heads)
+            want = fused_attention_reference(x, w, heads)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = ATTN_TOL[dt]
+            if got.dtype != dt or not err <= tol or not torch.equal(got, got2):
+                raise AssertionError(
+                    f"fused attention B={bsz} {dt}: max abs err {err} (tol {tol}), "
+                    f"v1 and v2 equal: {torch.equal(got, got2)}"
+                )
+            xt = x.transpose(0, 1)
+            iters = 50
+            item = x.element_size()
+            ops = bsz * (8 * s * e * e + 4 * s * s * e)
+            bound_ms, bound_by = _bound(
+                2 * bsz * s * e * item + 4 * (4 * e * e + 4 * e), ops, F32_CUDA_CORE_FLOPS
+            )
+            row = {
+                "shape": f"B={bsz},S={s},E={e},H={heads},{str(dt).replace('torch.', '')}",
+                "max_abs_err": err,
+                "tol": tol,
+                "ms": time_ms(lambda: fn(x, w, heads), iters),
+                "plain_ms": time_ms(lambda: fused_attention_reference(x, w, heads), iters),
+                # One call to PyTorch's multi-head attention (SDPA inside),
+                # weights cast to x's dtype once outside the timed region.
+                "library_ms": time_ms(
+                    lambda: torch.nn.functional.multi_head_attention_forward(
+                        xt, xt, xt, e, heads, lib_w[0], lib_w[1], None, None, False,
+                        0.0, lib_w[2], lib_w[3], training=False, need_weights=False,
+                    ),
+                    iters,
+                ),
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            print(f"[K5/K7 fused_attention] {json.dumps(row)}", flush=True)
+            rows.append(row)
+    return rows
+
+
+def _reset_counts():
+    from ai_font_renderer_tpu_torch.ops import fused_attention, fused_attention2, fused_output
+
+    fused_output.launches = fused_attention.launches = fused_attention2.launches = 0
+
+
+def _counts() -> dict:
+    from ai_font_renderer_tpu_torch.ops import fused_attention, fused_attention2, fused_output
+
+    return {
+        "fused_output": fused_output.launches,
+        "fused_attention": fused_attention.launches,
+        "fused_attention2": fused_attention2.launches,
+    }
+
+
+def _atlas_strings(n: int, length: int, seed: int = 0) -> list[str]:
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ "))
+    return ["".join(row) for row in letters[rng.integers(0, len(letters), (n, length))]]
+
+
+def _profile_atlas(params, strings, mcfg) -> None:
+    """Where one atlas render spends its time: the host's string encoding,
+    the wall time, and the device's kernel time by kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.render import render_atlas
+
+    t0 = time.perf_counter()
+    encode_codes(strings, mcfg.max_length)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        render_atlas(params, strings, mcfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[profile] atlas 4096: wall {wall_ms:.2f} ms (profiled), device kernels "
+          f"{busy_ms:.2f} ms, busy share {busy_ms / wall_ms:.3f}, host encode {encode_ms:.2f} ms",
+          flush=True)
+    for e in top:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}",
+              flush=True)
+
+
+def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import ModelConfig, replace
+    from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.render import render_atlas, render_batch, render_strings
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config, save_params
+
+    cfg = ModelConfig(use_pallas_output=True, fused_attention=True)
+    t0 = time.perf_counter()
+    params = font_renderer.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    path = os.path.join(workdir, "font_renderer.npz")
+    save_params(params, path, cfg)
+    loaded, mcfg = load_params_with_config(path, base=cfg, device="cuda")
+    n_params = font_renderer.param_count(loaded)
+    for k, v in params.items():
+        if not torch.equal(v, loaded[k]):
+            raise AssertionError(f"npz round trip changed {k}")
+    print(
+        f"[render] {n_params} parameters, init + save + load {time.perf_counter() - t0:.2f} s",
+        flush=True,
+    )
+    del params
+
+    out_dir = os.path.join(workdir, "renders")
+    _reset_counts()
+    paths = render_strings(loaded, TEST_STRINGS, out_dir, mcfg)
+    strings_counts = _counts()
+    if len(paths) != len(TEST_STRINGS):
+        raise AssertionError(f"{len(paths)} BMPs for {len(TEST_STRINGS)} strings")
+    images = np.stack([read_bmp(p) for p in paths])
+    if images.shape != (15, 80, 240):
+        raise AssertionError(f"BMPs decode to {images.shape}, want (15, 80, 240)")
+    plain = render_batch(loaded, TEST_STRINGS, replace(mcfg, use_pallas_output=False, fused_attention=False))
+    kern = render_batch(loaded, TEST_STRINGS, mcfg)
+    sheet_err = float(np.abs(kern - plain).max())
+    bmp_err = float(np.abs(images - np.round(np.clip(plain, 0, 1) * 255) / 255).max())
+    if not (np.isfinite(kern).all() and sheet_err <= SHEET_TOL and bmp_err <= 1 / 255 + 1e-6):
+        raise AssertionError(f"sheets vs plain path: max err {sheet_err}, BMP err {bmp_err}")
+    print(f"[render] 15 BMPs 80x240; sheets vs plain path max abs err {sheet_err:.3g} "
+          f"(tol {SHEET_TOL}), BMPs within {bmp_err * 255:.2f} gray levels", flush=True)
+
+    strings = _atlas_strings(4096, mcfg.max_length)
+    torch.cuda.synchronize()
+    _reset_counts()
+    warm = render_atlas(loaded, strings, mcfg)  # also fills the allocator's cache
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        atlas = render_atlas(loaded, strings, mcfg)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    atlas_counts = _counts()
+    if atlas.shape != (4096, 80, 240) or not bool(torch.isfinite(atlas).all()):
+        raise AssertionError(f"atlas {tuple(atlas.shape)} not finite or misshapen")
+    if not torch.equal(atlas, warm):
+        raise AssertionError("the atlas differs between two runs")
+    gps = sorted(4096 * mcfg.max_length / t for t in runs)
+    print(f"[render] atlas 4096 sheets x {mcfg.max_length} glyphs: glyphs/s runs "
+          f"{gps}, median {gps[len(gps) // 2]} ({card})", flush=True)
+    _profile_atlas(loaded, strings, mcfg)
+    counts = {k: strings_counts[k] + atlas_counts[k] for k in strings_counts}
+    print(f"[render] launches: test strings {strings_counts}, atlas {atlas_counts}", flush=True)
+    for name in ("fused_output", "fused_attention"):
+        if counts[name] <= 0:
+            raise AssertionError(f"render never launched {name}: {counts}")
+    return loaded, counts
+
+
+def phase_serve(params, workdir: str) -> dict:
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.render import render_batch_u8_async
+    from ai_font_renderer_tpu_torch.render.server import RenderServer, request_render
+
+    scfg = ModelConfig(use_pallas_output=True, fused_attention_v2=True, bf16_frontend=True)
+    sock = os.path.join(workdir, "afr.sock")
+    requests = {
+        "short": ["HELLO", "SERVE ME", ""],
+        "mid": _atlas_strings(17, 40, seed=1),
+        "long": _atlas_strings(150, 100, seed=2),  # more than one 64-string batch
+    }
+    _reset_counts()
+    srv = RenderServer(params, scfg, socket_path=sock, batch_size=64)
+    srv.start()
+    replies, latency_ms, errors = {}, {}, []
+    try:
+        def client(name):
+            try:
+                t0 = time.perf_counter()
+                replies[name] = request_render(sock, requests[name])
+                latency_ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+            except Exception as e:  # reported below, after the join
+                errors.append((name, repr(e)))
+
+        threads = [threading.Thread(target=client, args=(n,)) for n in requests]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"serve clients failed: {errors}")
+    finally:
+        srv.stop()
+    counts = _counts()
+    for name, strings in requests.items():
+        header, payloads = replies[name]
+        got = np.stack([np.frombuffer(p, np.uint8).reshape(80, 240) for p in payloads])
+        want = render_batch_u8_async(params, strings, scfg).cpu().numpy()
+        if header["count"] != len(strings) or not np.array_equal(got, want):
+            diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+            raise AssertionError(f"serve reply {name} differs from a direct render (max {diff})")
+    print(f"[serve] 3 concurrent requests ({[len(v) for v in requests.values()]} strings) equal "
+          f"direct renders; latency ms {latency_ms}; launches {counts}", flush=True)
+    for name in ("fused_output", "fused_attention2"):
+        if counts[name] <= 0:
+            raise AssertionError(f"serve never launched {name}: {counts}")
+    return counts
+
+
+def _kernel_entry(name, source, replaces, rows, headline, launches) -> dict:
+    head = next(r for r in rows if r["shape"] == headline)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": headline,
+        "by_shape": rows,
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    import ai_font_renderer_tpu_torch  # noqa: F401  (fails outside the repo)
+    from ai_font_renderer_tpu_torch.device import resolve_device
+
+    t_start = time.perf_counter()
+    resolve_device("cuda")
+    card = _nvidia_smi()
+    print(card, flush=True)
+    print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
+    phase_build()
+
+    k1_rows = check_fused_output()
+    attn_rows = check_fused_attention()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        params, render_counts = phase_render(workdir, card)
+        serve_counts = phase_serve(params, workdir)
+    launches = {k: render_counts[k] + serve_counts[k] for k in render_counts}
+
+    src = "ai_font_renderer_tpu_torch/csrc/"
+    kernels = [
+        _kernel_entry(
+            "fused_output_fwd", src + "fused_output.cu",
+            "ai_font_renderer_tpu/ops/fused_output.py:47", k1_rows,
+            "M=1024,K=6400,N=19200", launches["fused_output"],
+        ),
+        _kernel_entry(
+            "fused_attention_fwd (v1 entry point)", src + "fused_attention.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:65",
+            [r for r in attn_rows if r["shape"].endswith("float32")],
+            "B=1024,S=100,E=32,H=4,float32", launches["fused_attention"],
+        ),
+        _kernel_entry(
+            "fused_attention2_fwd (v2 entry point)", src + "fused_attention.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:374",
+            [r for r in attn_rows if r["shape"].endswith("bfloat16")],
+            "B=64,S=100,E=32,H=4,bfloat16", launches["fused_attention2"],
+        ),
+    ]
+    print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
