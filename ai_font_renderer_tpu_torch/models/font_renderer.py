@@ -1,4 +1,4 @@
-"""AttentionFontRenderer in PyTorch: char codes -> pixel sheet (eval only).
+"""AttentionFontRenderer in PyTorch: char codes -> pixel sheet.
 
 The port of ai_font_renderer_tpu/models/font_renderer.py, linear decoder:
 
@@ -14,8 +14,13 @@ JAX-initialised dict carried across by :func:`params_from_jax` makes
 :class:`AttentionFontRenderer` is the same thing as an ``nn.Module`` whose
 parameters carry those names.
 
-This slice serves: ``train=True`` (dropout) and the conv decoders raise
-``NotImplementedError`` and name the slice that brings them.
+``train=True`` applies dropout (to the embeddings, the attention
+probabilities and fc1's output) with masks drawn from the
+``torch.Generator`` passed as ``generator``, in that order, and the leaky
+clamp when ``leaky_clamp`` > 0. JAX's key schedule cannot be reproduced
+here, so masks differ from the JAX package's; their distribution does
+not. The conv decoders raise ``NotImplementedError`` and name the slice
+that brings them; so does training through the fused attention kernels.
 """
 
 from __future__ import annotations
@@ -33,7 +38,12 @@ from ..ops.fused_attention import KEYS as ATTN_KEYS
 from ..ops.fused_attention import fused_attention, fused_attention2, fused_attention_reference
 from ..ops.fused_output import fused_output
 
-_TRAIN_SLICE = "training (dropout, backward) comes with the training slice of the port"
+_ATTN_TRAIN = (
+    "training through the fused attention kernels (fused_attention / "
+    "fused_attention_v2) comes with slice 3 of the port, the attention "
+    "training slice (Philox dropout in K5/K7, the K6/K8 backward); train with "
+    "both flags off, the plain attention (the JAX trainer's default)"
+)
 
 
 def _conv_not_ported(cfg: ModelConfig) -> None:
@@ -172,10 +182,40 @@ def infer_model_config(params: Mapping, base: ModelConfig = ModelConfig()) -> Mo
     return dataclasses.replace(base, **kw)
 
 
-def attention(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Multi-head self-attention, x [B, S, E] -> [B, S, E] (eval: no
-    dropout). Softmax statistics are f32 whatever x's dtype."""
-    return fused_attention_reference(x, params, cfg.num_heads)
+def _dropout(x: torch.Tensor, rate: float, generator, train: bool, bits: bool = False) -> torch.Tensor:
+    """Inverted dropout with keep probability 1 - rate, masks drawn from
+    ``generator``. ``bits``: the mask is a uint8 draw kept where it is below
+    int(keep * 256), so the keep probability is quantised to 1/256 (0.8 ->
+    0.796875), as the JAX package's bits_dropout; otherwise a uniform f32
+    draw kept where it is below keep (jax.random.bernoulli)."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    if bits:
+        draw = torch.randint(0, 256, x.shape, generator=generator, device=x.device, dtype=torch.uint8)
+        mask = draw < int(keep * 256)
+    else:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attention(
+    params: Mapping[str, torch.Tensor],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    train: bool = False,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Multi-head self-attention, x [B, S, E] -> [B, S, E], with dropout on
+    the attention probabilities when training (as torch's MultiheadAttention
+    applies it). Softmax statistics are f32 whatever x's dtype."""
+    drop = None
+    if train and cfg.dropout_rate > 0.0:
+        def drop(probs):
+            return _dropout(probs, cfg.dropout_rate, generator, True, cfg.bits_dropout)
+
+    return fused_attention_reference(x, params, cfg.num_heads, dropout=drop)
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -190,15 +230,20 @@ def features(
     cfg: ModelConfig = ModelConfig(),
     *,
     train: bool = False,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
-    """codes [B, S] -> per-slot features [B, min(S, max_length), hidden]."""
-    if train:
-        raise NotImplementedError(_TRAIN_SLICE)
+    """codes [B, S] -> per-slot features [B, min(S, max_length), hidden].
+    ``train=True`` draws its dropout masks from ``generator``."""
+    if train and (cfg.fused_attention or cfg.fused_attention_v2):
+        raise NotImplementedError(_ATTN_TRAIN)
+    if train and generator is None:
+        raise ValueError("train=True needs a torch.Generator for the dropout masks")
     S = min(codes.shape[1], cfg.max_length)
     codes = codes[:, :S].long()
     dt = torch.bfloat16 if cfg.bf16_frontend else torch.float32
 
     x = params["embedding"].to(dt)[codes]  # [B, S, E]
+    x = _dropout(x, cfg.dropout_rate, generator, train, cfg.bits_dropout)
     x = x + params["pos"].to(dt)[:S]
 
     weights = {k: params[k] for k in ATTN_KEYS}
@@ -207,7 +252,7 @@ def features(
     elif cfg.fused_attention:
         attn = fused_attention(x, weights, cfg.num_heads)
     else:
-        attn = attention(params, x, cfg)
+        attn = attention(params, x, cfg, train=train, generator=generator)
     # LayerNorm statistics in f32 even under a bf16 frontend.
     x = _layer_norm((x + attn).float(), params["ln_scale"], params["ln_bias"]).to(dt)
 
@@ -215,12 +260,13 @@ def features(
     # fused kernels cover block 0 only.
     for i in range(1, cfg.num_blocks):
         sub = {k: params[f"{k}_b{i}"] for k in ATTN_KEYS}
-        a = attention(sub, x, cfg)
+        a = attention(sub, x, cfg, train=train, generator=generator)
         x = _layer_norm(
             (x + a).float(), params[f"ln_scale_b{i}"], params[f"ln_bias_b{i}"]
         ).to(dt)
 
-    return torch.relu(x @ params["fc1_w"].to(dt) + params["fc1_b"].to(dt))
+    x = torch.relu(x @ params["fc1_w"].to(dt) + params["fc1_b"].to(dt))
+    return _dropout(x, cfg.fc_dropout_rate, generator, train, cfg.bits_dropout)
 
 
 def frontend(
@@ -229,15 +275,36 @@ def frontend(
     cfg: ModelConfig = ModelConfig(),
     *,
     train: bool = False,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """Everything before the output projection: codes -> flat [B, 6400] f32,
     short sequences zero-padded to max_length * hidden_dim."""
     B = codes.shape[0]
-    flat = features(params, codes, cfg, train=train).float().reshape(B, -1)
+    flat = features(params, codes, cfg, train=train, generator=generator).float().reshape(B, -1)
     full = cfg.max_length * cfg.hidden_dim
     if flat.shape[1] < full:
         flat = torch.nn.functional.pad(flat, (0, full - flat.shape[1]))
     return flat
+
+
+class ProjBf16Grad(torch.autograd.Function):
+    """flat @ w with bf16 operands AND a bf16-rounded cotangent, f32 sums
+    (the JAX package's ``_proj_bf16grad`` custom VJP, ModelConfig.
+    bf16_cotangent): all three projection products take bf16 operands."""
+
+    @staticmethod
+    def forward(ctx, flat, w):
+        fb, wb = flat.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(fb, wb)
+        return fb.float() @ wb.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        fb, wb = ctx.saved_tensors
+        gb = g.to(torch.bfloat16).float()
+        dflat = gb @ wb.float().T if ctx.needs_input_grad[0] else None
+        dw = fb.float().T @ gb if ctx.needs_input_grad[1] else None
+        return dflat, dw
 
 
 def apply(
@@ -246,13 +313,14 @@ def apply(
     cfg: ModelConfig = ModelConfig(),
     *,
     train: bool = False,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
-    """Forward pass: int codes [B, <=max_length] -> sheets [B, H, W] in [0, 1]."""
-    if train:
-        raise NotImplementedError(_TRAIN_SLICE)
+    """Forward pass: int codes [B, <=max_length] -> sheets [B, H, W] in [0, 1].
+    ``train=True`` applies dropout (masks from ``generator``) and the leaky
+    clamp; gradients flow to every parameter that requires one."""
     _conv_not_ported(cfg)
     B = codes.shape[0]
-    flat = frontend(params, codes, cfg)
+    flat = frontend(params, codes, cfg, train=train, generator=generator)
     if cfg.use_pallas_output:
         if cfg.leaky_clamp > 0.0 or cfg.bf16_cotangent:
             raise ValueError(
@@ -262,23 +330,31 @@ def apply(
             )
         sheet = fused_output(flat, params["out_w"], params["out_b"])
         return sheet.reshape(B, cfg.sheet_height, cfg.sheet_width)
-    if cfg.bf16_cotangent and not cfg.bf16_matmul:
-        raise ValueError(
-            "bf16_cotangent runs the forward projection in bf16 too; "
-            "it cannot combine with bf16_matmul=False (strict-f32 "
-            "parity mode)"
-        )
-    w = params["out_w"]
-    if cfg.bf16_matmul:
-        # bf16 operands, f32 sums: a bf16 x bf16 product is exact in f32.
-        flat, w = flat.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
-    sheet = flat @ w + params["out_b"]
-    return _clamp(sheet.reshape(B, cfg.sheet_height, cfg.sheet_width))
+    if cfg.bf16_cotangent:
+        if not cfg.bf16_matmul:
+            raise ValueError(
+                "bf16_cotangent runs the forward projection in bf16 too; "
+                "it cannot combine with bf16_matmul=False (strict-f32 "
+                "parity mode)"
+            )
+        sheet = ProjBf16Grad.apply(flat, params["out_w"]) + params["out_b"]
+    else:
+        w = params["out_w"]
+        if cfg.bf16_matmul:
+            # bf16 operands, f32 sums: a bf16 x bf16 product is exact in f32.
+            flat, w = flat.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+        sheet = flat @ w + params["out_b"]
+    return _clamp(sheet.reshape(B, cfg.sheet_height, cfg.sheet_width), cfg, train)
 
 
-def _clamp(x: torch.Tensor) -> torch.Tensor:
-    """The [0, 1] output clamp of eval and inference."""
-    return x.clamp(0.0, 1.0)
+def _clamp(x: torch.Tensor, cfg: ModelConfig, train: bool) -> torch.Tensor:
+    """The [0, 1] output clamp; leaky while training when
+    ``cfg.leaky_clamp`` > 0: y = clip(x) + s * (x - clip(x)), so a saturated
+    pixel keeps a gradient of s. Eval and inference always hard-clamp."""
+    y = x.clamp(0.0, 1.0)
+    if train and cfg.leaky_clamp > 0.0:
+        return y + cfg.leaky_clamp * (x - y)
+    return y
 
 
 class AttentionFontRenderer(nn.Module):

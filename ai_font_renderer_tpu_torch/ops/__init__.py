@@ -1,13 +1,31 @@
-"""Hand-written CUDA kernels of the serving path, each beside its plain
-PyTorch version."""
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version."""
 
 from .fused_attention import fused_attention, fused_attention2, fused_attention_reference
-from .fused_output import fused_output, fused_output_reference
+from .fused_dw_adamw import fused_dw_adamw, fused_dw_adamw_reference
+from .fused_output import (
+    FusedOutputFunction,
+    fused_output,
+    fused_output_dw,
+    fused_output_dw_reference,
+    fused_output_dx,
+    fused_output_dx_reference,
+    fused_output_fwd,
+    fused_output_reference,
+)
 
 __all__ = [
+    "FusedOutputFunction",
     "fused_attention",
     "fused_attention2",
     "fused_attention_reference",
+    "fused_dw_adamw",
+    "fused_dw_adamw_reference",
     "fused_output",
+    "fused_output_dw",
+    "fused_output_dw_reference",
+    "fused_output_dx",
+    "fused_output_dx_reference",
+    "fused_output_fwd",
     "fused_output_reference",
 ]

@@ -9,9 +9,12 @@ there is none, so both launch the same kernel, csrc/fused_attention.cu, on a
 CUDA tensor, for any batch, or raise. Each keeps its own launch count. On a
 CPU tensor they run the plain version, which is the model's attention math.
 
-Dropout (rate > 0) comes with the training slice: a counter-based Philox in
-the kernel and the backward kernels (K6, K8) behind a
-``torch.autograd.Function``.
+Training through these kernels comes with slice 3 of the port, the
+attention training slice: dropout (rate > 0) from a counter-based Philox in
+the kernel, and the backward kernels (K6, K8) behind a
+``torch.autograd.Function``. Until then both entry points raise on a rate
+above 0 and on any input that requires a gradient, rather than return a
+tensor through which no gradient flows.
 """
 
 from __future__ import annotations
@@ -33,14 +36,16 @@ _SIGNATURES = {
 }
 
 
-def fused_attention_reference(x: torch.Tensor, weights, heads: int) -> torch.Tensor:
+def fused_attention_reference(x: torch.Tensor, weights, heads: int, dropout=None) -> torch.Tensor:
     """Plain multi-head self-attention, the math of the JAX package's
     models/font_renderer.py:attention. x [B, S, E] in f32 or bf16;
     ``weights`` holds wq/wk/wv/wo [E, E] (in -> out) and bq/bk/bv/bo [E].
 
     Projections run in x's dtype; the logits and softmax are f32 and the
     probabilities are rounded to x's dtype before P @ v, whose f32 sum is
-    rounded back to x's dtype.
+    rounded back to x's dtype. ``dropout``, when given, maps the rounded
+    probabilities [B, H, S, S] to their dropped-out values (the model's
+    training path).
     """
     B, S, E = x.shape
     d = E // heads
@@ -54,15 +59,28 @@ def fused_attention_reference(x: torch.Tensor, weights, heads: int) -> torch.Ten
     v = proj("wv", "bv").reshape(B, S, heads, d)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(d)
     probs = torch.softmax(logits, dim=-1).to(dt)
+    if dropout is not None:
+        probs = dropout(probs)
     out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float()).to(dt)
     return out.reshape(B, S, E) @ weights["wo"].to(dt) + weights["bo"].to(dt)
 
 
-def _check_rate(dropout_rate: float) -> None:
+_SLICE_3 = (
+    "comes with slice 3 of the port, the attention training slice "
+    "(Philox dropout in the kernel, K6/K8 backward)"
+)
+
+
+def _check_trainable(x: torch.Tensor, weights, dropout_rate: float) -> None:
+    """Raise on what the forward-only kernel cannot give: dropout, or a
+    gradient to any input."""
     if dropout_rate != 0.0:
+        raise NotImplementedError(f"dropout inside the fused attention kernel {_SLICE_3}; rate must be 0")
+    if torch.is_grad_enabled() and (x.requires_grad or any(weights[k].requires_grad for k in KEYS)):
         raise NotImplementedError(
-            "dropout inside the fused attention kernel comes with the "
-            "training slice (Philox mask, K6/K8 backward); rate must be 0"
+            f"a gradient through the fused attention kernel {_SLICE_3}; "
+            "run it under torch.no_grad(), or train with fused_attention=False "
+            "and fused_attention_v2=False"
         )
 
 
@@ -106,7 +124,7 @@ def _launch(x: torch.Tensor, weights, heads: int, entry) -> torch.Tensor:
 def fused_attention(x: torch.Tensor, weights, heads: int, dropout_rate: float = 0.0) -> torch.Tensor:
     """v1 entry point (K5): [B, S, E] -> [B, S, E] in x's dtype.
     ``fused_attention.launches`` counts kernel launches."""
-    _check_rate(dropout_rate)
+    _check_trainable(x, weights, dropout_rate)
     if x.device.type == "cpu":
         return fused_attention_reference(x, weights, heads)
     return _launch(x, weights, heads, fused_attention)
@@ -115,7 +133,7 @@ def fused_attention(x: torch.Tensor, weights, heads: int, dropout_rate: float = 
 def fused_attention2(x: torch.Tensor, weights, heads: int, dropout_rate: float = 0.0) -> torch.Tensor:
     """v2 entry point (K7), the same kernel at rate 0.
     ``fused_attention2.launches`` counts kernel launches."""
-    _check_rate(dropout_rate)
+    _check_trainable(x, weights, dropout_rate)
     if x.device.type == "cpu":
         return fused_attention_reference(x, weights, heads)
     return _launch(x, weights, heads, fused_attention2)

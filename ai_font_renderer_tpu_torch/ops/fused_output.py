@@ -1,13 +1,25 @@
-"""Fused output projection clamp(x @ W + b, 0, 1): the CUDA kernel and its
-plain version.
+"""Fused output projection clamp(x @ W + b, 0, 1): the CUDA kernels of its
+forward and backward, their plain versions, and the autograd function that
+joins them.
 
-``fused_output`` launches csrc/fused_output.cu on a CUDA tensor, for every
-shape, or raises; it takes the plain version only for tensors on the CPU.
-It replaces the TPU kernel ai_font_renderer_tpu/ops/fused_output.py:
-_fwd_kernel (K1). Unlike the TPU path, which runs its kernel only when M, K
-and N are multiples of 128 and otherwise falls back to plain ops, the CUDA
-kernel masks the ragged edge itself. Forward only: the backward (K2, K3)
-comes with the training slice as a ``torch.autograd.Function``.
+Each wrapper launches its kernel of csrc/fused_output.cu on CUDA tensors, for
+every shape, or raises; it takes its plain version only for tensors on the
+CPU. The kernels replace the TPU kernels of ai_font_renderer_tpu/ops/
+fused_output.py:
+
+* ``fused_output_fwd`` -- K1, ``_fwd_kernel``: clamp(bf16(x) @ bf16(w) + b);
+* ``fused_output_dx`` -- K2, ``_dx_kernel``: bf16(g * mask) @ bf16(w)^T;
+* ``fused_output_dw`` -- K3, ``_dw_kernel``: bf16(x)^T @ bf16(g * mask);
+
+with mask = 0 < out < 1: the clamp passes a gradient only strictly inside
+its bounds (torch.clamp's own backward also passes it at the bounds).
+``fused_output`` is the entry point, :class:`FusedOutputFunction`: K1
+forward, K2 and K3 backward, db = sum(g * mask) in PyTorch. Unlike the TPU
+path, which runs its kernels only when M, K and N are multiples of 128 and
+otherwise falls back to plain ops, the CUDA kernels mask the ragged edge.
+
+Launch counts: K1's on ``fused_output.launches``, K2's and K3's on
+``fused_output_dx.launches`` and ``fused_output_dw.launches``.
 """
 
 from __future__ import annotations
@@ -18,47 +30,152 @@ import torch
 
 from . import _build
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGNATURE = ([_PTR] * 4 + [_INT] * 3 + [_PTR], ctypes.c_int)
 _SIGNATURES = {
-    "afr_fused_output_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
+    "afr_fused_output_fwd": _SIGNATURE,
+    "afr_fused_output_dx": _SIGNATURE,
+    "afr_fused_output_dw": _SIGNATURE,
 }
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (nearest even) and back to f32: a product of two such
+    values is exact in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def clamp_mask(out: torch.Tensor) -> torch.Tensor:
+    """Where the clamp passes a gradient: strictly inside (0, 1)."""
+    return (out > 0.0) & (out < 1.0)
+
+
 def fused_output_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version: bf16-rounded operands, an f32 product (TF32 off), bias,
-    clamp. A bf16 x bf16 product is exact in f32, so this differs from the
-    kernel only in the order of the f32 sums."""
-    z = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float() + b
-    return z.clamp(0.0, 1.0)
+    """K1's plain version: bf16-rounded operands, an f32 product (TF32 off),
+    bias, clamp. It differs from the kernel only in the order of the f32
+    sums."""
+    return (_bf16(x) @ _bf16(w) + b).clamp(0.0, 1.0)
 
 
-def fused_output(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """clamp(bf16(x) @ bf16(w) + b, 0, 1) in f32. x [M, K], w [K, N], b [N],
-    all float32. ``fused_output.launches`` counts kernel launches."""
+def fused_output_dx_reference(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K2's plain version: bf16(g * mask) @ bf16(w)^T in f32."""
+    return _bf16(torch.where(clamp_mask(out), g, 0.0)) @ _bf16(w).T
+
+
+def fused_output_dw_reference(x: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """K3's plain version: bf16(x)^T @ bf16(g * mask) in f32."""
+    return _bf16(x).T @ _bf16(torch.where(clamp_mask(out), g, 0.0))
+
+
+def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
+    """Device, dtype, contiguity and shape checks shared by the wrappers."""
+    dev = next(iter(tensors.values())).device
+    for key, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: {key} must be a contiguous float32 tensor on {dev}")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(
+                f"{name}: shape mismatch, {key} is {tuple(t.shape)}, expected {shapes[key]} "
+                f"from " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tensors.items())
+            )
+    return dev
+
+
+def _launch(entry, fn_name: str, args: tuple, dims: tuple, dev: torch.device) -> None:
+    with torch.cuda.device(dev):
+        lib = _build.load("fused_output", _SIGNATURES)
+        rc = getattr(lib, fn_name)(*(t.data_ptr() for t in args), *dims, _build.stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
+    entry.launches += 1
+
+
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {t.device}")
+
+
+def fused_output_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1: clamp(bf16(x) @ bf16(w) + b, 0, 1) in f32, no autograd. x [M, K],
+    w [K, N], b [N], all float32. Counts on ``fused_output.launches``."""
     if x.device.type == "cpu":
         return fused_output_reference(x, w, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_output runs on cuda or cpu tensors, not {x.device}")
+    _require_cuda("fused_output", x)
     if x.dim() != 2 or w.dim() != 2 or b.dim() != 1:
         raise ValueError(f"expected x [M,K], w [K,N], b [N]; got {x.shape}, {w.shape}, {b.shape}")
     m, k = x.shape
-    k2, n = w.shape
-    if k != k2 or b.shape[0] != n:
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}")
-    for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return out
-    with torch.cuda.device(x.device):
-        rc = _build.load("fused_output", _SIGNATURES).afr_fused_output_fwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            m, k, n, _build.stream_handle(x.device),
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_output kernel launch failed: CUDA error {rc}")
-    fused_output.launches += 1
+    n = w.shape[1]
+    dev = _check("fused_output", {"x": x, "w": w, "b": b}, {"x": (m, k), "w": (k, n), "b": (n,)})
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m:
+        _launch(fused_output, "afr_fused_output_fwd", (x, w, b, out), (m, k, n), dev)
     return out
 
 
+def fused_output_dx(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K2: dX = bf16(g * mask(out)) @ bf16(w)^T in f32. g, out [M, N],
+    w [K, N] -> [M, K]. ``fused_output_dx.launches`` counts launches."""
+    if g.device.type == "cpu":
+        return fused_output_dx_reference(g, out, w)
+    _require_cuda("fused_output_dx", g)
+    if g.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"expected g [M,N], out [M,N], w [K,N]; got {g.shape}, {out.shape}, {w.shape}")
+    m, n = g.shape
+    k = w.shape[0]
+    dev = _check("fused_output_dx", {"g": g, "out": out, "w": w}, {"g": (m, n), "out": (m, n), "w": (k, n)})
+    dx = torch.empty((m, k), dtype=torch.float32, device=dev)
+    if m:
+        _launch(fused_output_dx, "afr_fused_output_dx", (g, out, w, dx), (m, k, n), dev)
+    return dx
+
+
+def fused_output_dw(x: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """K3: dW = bf16(x)^T @ bf16(g * mask(out)) in f32. x [M, K], g and
+    out [M, N] -> [K, N]. ``fused_output_dw.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return fused_output_dw_reference(x, g, out)
+    _require_cuda("fused_output_dw", x)
+    if x.dim() != 2 or g.dim() != 2:
+        raise ValueError(f"expected x [M,K], g [M,N], out [M,N]; got {x.shape}, {g.shape}, {out.shape}")
+    m, k = x.shape
+    n = g.shape[1]
+    dev = _check("fused_output_dw", {"x": x, "g": g, "out": out}, {"x": (m, k), "g": (m, n), "out": (m, n)})
+    if not m:
+        return torch.zeros((k, n), dtype=torch.float32, device=dev)
+    dw = torch.empty((k, n), dtype=torch.float32, device=dev)
+    _launch(fused_output_dw, "afr_fused_output_dw", (x, g, out, dw), (m, k, n), dev)
+    return dw
+
+
+class FusedOutputFunction(torch.autograd.Function):
+    """clamp(bf16(x) @ bf16(w) + b, 0, 1) with the projection's own
+    gradient: K1 forward; K2 for dx, K3 for dw and db = sum(g * mask) in
+    PyTorch, all with the strict mask 0 < out < 1 (the JAX package's
+    custom VJP, ops/fused_output.py:_bwd_rule)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        out = fused_output_fwd(x, w, b)
+        ctx.save_for_backward(x, w, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        g = g.contiguous()
+        dx = fused_output_dx(g, out, w) if ctx.needs_input_grad[0] else None
+        dw = fused_output_dw(x, g, out) if ctx.needs_input_grad[1] else None
+        db = torch.where(clamp_mask(out), g, 0.0).sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def fused_output(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """clamp(bf16(x) @ bf16(w) + b, 0, 1) in f32, differentiable in x, w
+    and b. x [M, K], w [K, N], b [N], all float32. ``fused_output.launches``
+    counts K1's launches."""
+    return FusedOutputFunction.apply(x, w, b)
+
+
 fused_output.launches = 0
+fused_output_dx.launches = 0
+fused_output_dw.launches = 0

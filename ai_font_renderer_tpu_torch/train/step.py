@@ -1,0 +1,376 @@
+"""Training steps and epochs: MSE, optax-exact AdamW, the standard, hand-rolled
+and fused steps, and the epoch loops.
+
+The port of ai_font_renderer_tpu/train/step.py. PyTorch runs eagerly, so an
+epoch is a Python loop over its batches, each gathered from the corpus on
+the device; nothing in it waits for the card, and the losses stay on the
+device until the caller reads them after the epoch. Dropout masks come from
+the ``torch.Generator`` passed in. A step updates the state IN PLACE (the
+JAX step donates its buffers) and returns it with the batch loss.
+
+AdamW has optax's semantics (``make_optimizer`` in the JAX package:
+scale_by_adam -> add_decayed_weights -> scale(-1), times lr), written as
+plain tensor code over chunks of at most 4M elements, so the 123M-parameter
+projection needs no full-size temporaries:
+
+    mu <- b1*mu + (1-b1)*g            (f32; stored bf16 when adam_mu_bf16)
+    nu <- b2*nu + (1-b2)*g^2
+    u  <- (mu/(1-b1^t)) / (sqrt(nu/(1-b2^t)) + eps) + wd*p
+    p  <- p - lr*u
+
+Steps:
+
+* standard (``_standard_step``): autograd through ``font_renderer.apply``;
+  with ``use_pallas_output`` the projection is the K1/K2/K3 autograd
+  function (ops/fused_output.py) and dW (491.5 MB) is materialised, as on
+  the JAX path.
+* hand-rolled (``TrainConfig.handrolled_bwd``): the projection, clamp and
+  MSE written out; the masked cotangent is rounded once and feeds both
+  backward products. ``remat_frontend`` recomputes the frontend.
+* fused (``TrainConfig.fused_dw_adamw``, :class:`FusedTrainState`): the same
+  written-out projection, then K4 (ops/fused_dw_adamw.py) sums out_w's
+  gradient and applies its AdamW update in one pass. With
+  ``use_pallas_output`` the forward product is K1 and dX is K2.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch.utils import checkpoint as ckpt
+
+from ..config import ModelConfig, TrainConfig
+from ..device import resolve_device
+from ..models import font_renderer
+from ..ops.fused_dw_adamw import fused_dw_adamw
+from ..ops.fused_output import clamp_mask, fused_output_dx, fused_output_fwd
+
+EPS = 1e-8
+_CHUNK = 1 << 22  # elements per AdamW chunk: 16 MB of f32 temporaries
+
+
+@dataclass
+class TrainState:
+    """Parameters (leaves that require a gradient) and AdamW's moments, one
+    per parameter; ``count`` is the number of steps taken."""
+
+    params: dict
+    mu: dict
+    nu: dict
+    count: int = 0
+
+
+@dataclass
+class FusedTrainState:
+    """State of the fused step: ``mu``/``nu`` cover every parameter except
+    out_w, whose moments ``mu_w``/``nu_w`` K4 updates in place."""
+
+    params: dict
+    mu: dict
+    nu: dict
+    mu_w: torch.Tensor
+    nu_w: torch.Tensor
+    count: int = 0
+
+
+def _mu_dtype(tcfg: TrainConfig) -> torch.dtype:
+    return torch.bfloat16 if tcfg.adam_mu_bf16 else torch.float32
+
+
+def _moments(params: dict, tcfg: TrainConfig) -> tuple[dict, dict]:
+    mu = {k: torch.zeros_like(v, dtype=_mu_dtype(tcfg)) for k, v in params.items()}
+    nu = {k: torch.zeros_like(v) for k, v in params.items()}
+    return mu, nu
+
+
+def _trainable(params: dict) -> dict:
+    """Own copies of ``params`` as leaves that require a gradient: a step
+    updates them in place and must not write into the caller's tensors."""
+    return {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+
+
+def _check_fused(mcfg: ModelConfig) -> None:
+    if mcfg.decoder != "linear":
+        raise ValueError(
+            "fused_dw_adamw fuses the linear decoder's out_w update; "
+            f"decoder={mcfg.decoder!r} has no out_w"
+        )
+    if mcfg.leaky_clamp > 0.0:
+        raise ValueError(
+            "the fused step hand-codes the hard clamp's gradient mask; "
+            "leaky_clamp requires the standard step"
+        )
+
+
+def _state(params: dict, tcfg: TrainConfig, fused: bool):
+    params = _trainable(params)
+    if not fused:
+        return TrainState(params, *_moments(params, tcfg))
+    rest = {k: v for k, v in params.items() if k != "out_w"}
+    w = params["out_w"]
+    return FusedTrainState(
+        params, *_moments(rest, tcfg),
+        mu_w=torch.zeros_like(w, dtype=_mu_dtype(tcfg)), nu_w=torch.zeros_like(w),
+    )
+
+
+def state_from_params(params: dict, tcfg: TrainConfig):
+    """A fresh state (zero moments, count 0) around ``params``: a
+    :class:`FusedTrainState` when ``tcfg.fused_dw_adamw``."""
+    return _state(params, tcfg, tcfg.fused_dw_adamw)
+
+
+def init_state(generator: torch.Generator, mcfg: ModelConfig, tcfg: TrainConfig, device=None) -> TrainState:
+    """Parameters from ``generator`` (font_renderer.init) and zero moments."""
+    return _state(font_renderer.init(generator, mcfg, device), tcfg, fused=False)
+
+
+def init_fused_state(generator: torch.Generator, mcfg: ModelConfig, tcfg: TrainConfig, device=None) -> FusedTrainState:
+    _check_fused(mcfg)
+    return _state(font_renderer.init(generator, mcfg, device), tcfg, fused=True)
+
+
+def _to_tensor(value, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def train_state_from_jax(state, device=None):
+    """The JAX package's ``TrainState`` or ``FusedTrainState`` -> the port's.
+
+    Reads, without importing JAX, ``state.params`` and the optax
+    ``ScaleByAdamState`` (count, mu, nu) at ``state.opt_state[0]``, plus
+    ``mu_w``, ``nu_w`` and ``count`` of a fused state; every leaf goes
+    through ``np.asarray`` (bf16 moments keep their bits)."""
+    dev = resolve_device(device)
+    params = _trainable({k: _to_tensor(v, dev) for k, v in state.params.items()})
+    adam = state.opt_state[0]
+    mu = {k: _to_tensor(v, dev) for k, v in adam.mu.items()}
+    nu = {k: _to_tensor(v, dev) for k, v in adam.nu.items()}
+    if hasattr(state, "mu_w"):
+        return FusedTrainState(
+            params, mu, nu, _to_tensor(state.mu_w, dev), _to_tensor(state.nu_w, dev),
+            int(np.asarray(state.count)),
+        )
+    return TrainState(params, mu, nu, int(np.asarray(adam.count)))
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Plain MSE over all pixels, f32."""
+    d = pred.float() - target.float()
+    return (d * d).mean()
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``. optax multiplies a moment by its
+    decay as a scalar of the moment's own dtype, so with a bf16 mu b1 = 0.9
+    becomes 0.8984375; the product and the sum stay f32."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+@torch.no_grad()
+def adamw_(params, grads, mus, nus, lr: float, tcfg: TrainConfig, count: int) -> None:
+    """optax's AdamW over matching lists of tensors, in place, in chunks of
+    at most ``_CHUNK`` elements. ``count`` is the step after its increment."""
+    b1, b2, wd = tcfg.adam_b1, tcfg.adam_b2, tcfg.weight_decay
+    bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    for p, g, mu, nu in zip(params, grads, mus, nus):
+        chunks = (p.view(-1), g.reshape(-1), mu.view(-1), nu.view(-1))
+        for pc, gc, mc, nc in zip(*(t.split(_CHUNK) for t in chunks)):
+            m = mc.float().mul_(_in_dtype(b1, mc.dtype)).add_(gc, alpha=1 - b1)
+            nc.mul_(b2).addcmul_(gc, gc, value=1 - b2)
+            denom = (nc / bc2).sqrt_().add_(EPS)
+            u = (m / bc1).div_(denom).add_(pc, alpha=wd)
+            pc.add_(u, alpha=-lr)
+            mc.copy_(m)
+
+
+def loss_fn(params, codes, targets, mcfg, generator):
+    """The training loss: MSE of the dropout forward's sheets."""
+    pred = font_renderer.apply(params, codes, mcfg, train=True, generator=generator)
+    return mse_loss(pred, targets)
+
+
+def _standard_step(state: TrainState, codes, targets, lr, generator, mcfg, tcfg):
+    keys = list(state.params)
+    loss = loss_fn(state.params, codes, targets, mcfg, generator)
+    grads = torch.autograd.grad(loss, [state.params[k] for k in keys])
+    state.count += 1
+    adamw_(
+        [state.params[k] for k in keys], grads, [state.mu[k] for k in keys],
+        [state.nu[k] for k in keys], lr, tcfg, state.count,
+    )
+    return state, loss.detach()
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective checkpointing policy of remat_frontend="dots": keep the
+    outputs of the matrix products, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _frontend(rest: dict, codes, mcfg, generator, remat: str = "none") -> torch.Tensor:
+    """The frontend under autograd, recomputed in the backward for
+    ``remat`` "dots" or "full". torch.utils.checkpoint replays only the
+    default generators' state, never an explicit ``torch.Generator``'s, so
+    the function restores ``generator`` itself before each run: the
+    recomputation draws the same dropout masks as the forward did."""
+    keys = list(rest)
+
+    def front(*vals):
+        return font_renderer.frontend(dict(zip(keys, vals)), codes, mcfg, train=True, generator=generator)
+
+    vals = [rest[k] for k in keys]
+    if remat == "none":
+        return front(*vals)
+    start = generator.get_state()
+
+    def replay(*vals):
+        generator.set_state(start)
+        return front(*vals)
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_products)
+    return ckpt.checkpoint(replay, *vals, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _projection(flat, params, targets, mcfg):
+    """The written-out projection + clamp + MSE. Returns (loss, out, g, gm,
+    flat_dt, gm_dt): g = dL/dout unmasked, gm = g where 0 < out < 1, and the
+    product operands rounded to bf16 under bf16_matmul. With
+    ``use_pallas_output`` (which implies bf16) the forward product is K1."""
+    w, b = params["out_w"], params["out_b"]
+    dt = torch.bfloat16 if mcfg.bf16_matmul or mcfg.use_pallas_output else torch.float32
+    flat_dt = flat.to(dt)
+    if mcfg.use_pallas_output:
+        out = fused_output_fwd(flat.contiguous(), w.detach(), b.detach())
+    else:
+        out = (flat_dt.float() @ w.detach().to(dt).float() + b.detach()).clamp(0.0, 1.0)
+    tflat = targets.reshape(targets.shape[0], -1).float()
+    d = out - tflat
+    loss = (d * d).mean()
+    g = (2.0 / d.numel()) * d
+    gm = torch.where(clamp_mask(out), g, 0.0)
+    return loss, out, g, gm, flat_dt, gm.to(dt)
+
+
+def _dflat(out, g, gm_dt, w, mcfg):
+    """dL/dflat = gm_dt @ w^T with w in the product dtype: K2 under
+    ``use_pallas_output`` (which masks g itself), plain f32 sums otherwise."""
+    if mcfg.use_pallas_output:
+        return fused_output_dx(g, out, w)
+    return gm_dt.float() @ w.to(gm_dt.dtype).float().T
+
+
+def _handrolled_step(state: TrainState, codes, targets, lr, generator, mcfg, tcfg):
+    """Standard-state step with the projection's backward written out: the
+    masked cotangent is rounded once and feeds both backward products; the
+    frontend differentiates through autograd (recomputed under
+    ``remat_frontend``). The only numerical change from the standard step
+    is that rounding of the projection's cotangent."""
+    if mcfg.decoder != "linear" or mcfg.leaky_clamp > 0.0 or mcfg.use_pallas_output:
+        raise ValueError(
+            "handrolled_bwd hand-codes the linear projection + hard-clamp "
+            "backward; it requires decoder='linear', leaky_clamp=0, and "
+            "use_pallas_output=False"
+        )
+    params = state.params
+    rest = {k: v for k, v in params.items() if k not in ("out_w", "out_b")}
+    flat = _frontend(rest, codes, mcfg, generator, tcfg.remat_frontend)
+    with torch.no_grad():
+        w = params["out_w"]
+        loss, out, g, gm, flat_dt, gm_dt = _projection(flat.detach(), params, targets, mcfg)
+        dflat = _dflat(out, g, gm_dt, w, mcfg)
+        grads = {"out_b": gm.sum(0), "out_w": flat_dt.float().T @ gm_dt.float()}
+    grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
+    keys = list(params)
+    state.count += 1
+    adamw_(
+        [params[k] for k in keys], [grads[k] for k in keys], [state.mu[k] for k in keys],
+        [state.nu[k] for k in keys], lr, tcfg, state.count,
+    )
+    return state, loss
+
+
+def _fused_step(state: FusedTrainState, codes, targets, lr, generator, mcfg, tcfg):
+    """One step with K4 on the output projection: the same forward, MSE and
+    AdamW as the standard step, but out_w's gradient never reaches device
+    memory. The bf16 input and masked cotangent that K4 reads are the
+    operands of the forward and dX products."""
+    _check_fused(mcfg)
+    params = state.params
+    rest = {k: v for k, v in params.items() if k not in ("out_w", "out_b")}
+    flat = _frontend(rest, codes, mcfg, generator)
+    w = params["out_w"]
+    with torch.no_grad():
+        loss, out, g, gm, flat_dt, gm_dt = _projection(flat.detach(), params, targets, mcfg)
+        dflat = _dflat(out, g, gm_dt, w, mcfg)
+        grads = {"out_b": gm.sum(0)}
+    grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
+    keys = [k for k in params if k != "out_w"]
+    state.count += 1
+    adamw_(
+        [params[k] for k in keys], [grads[k] for k in keys], [state.mu[k] for k in keys],
+        [state.nu[k] for k in keys], lr, tcfg, state.count,
+    )
+    with torch.no_grad():
+        fused_dw_adamw(
+            flat_dt, gm_dt, w, state.mu_w, state.nu_w, lr, tcfg.weight_decay,
+            tcfg.adam_b1, tcfg.adam_b2, state.count, EPS,
+        )
+    return state, loss
+
+
+def train_step(state, codes, targets, lr: float, generator, mcfg: ModelConfig, tcfg: TrainConfig):
+    """One optimizer step on a batch -> (state, loss); the step the configs
+    select: fused (a :class:`FusedTrainState`), hand-rolled, or standard."""
+    if isinstance(state, FusedTrainState):
+        return _fused_step(state, codes, targets, lr, generator, mcfg, tcfg)
+    if tcfg.handrolled_bwd:
+        return _handrolled_step(state, codes, targets, lr, generator, mcfg, tcfg)
+    return _standard_step(state, codes, targets, lr, generator, mcfg, tcfg)
+
+
+def train_epoch(state, dataset, batch_idx: torch.Tensor, lr: float, generator, mcfg, tcfg):
+    """One epoch over ``batch_idx`` [steps, B] (sample indices on the
+    dataset's device) -> (state, mean train loss as a device scalar)."""
+    losses = []
+    for idx in batch_idx:
+        codes, targets = dataset.gather_batch(idx)
+        state, loss = train_step(state, codes, targets, lr, generator, mcfg, tcfg)
+        losses.append(loss)
+    return state, torch.stack(losses).mean()
+
+
+@torch.no_grad()
+def eval_epoch(params, dataset, batch_idx: torch.Tensor, weights: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
+    """Validation (no dropout) -> the sample-weighted mean MSE as a device
+    scalar; ``weights`` [steps, B] is 0 for the padding of the last batch."""
+    sums = torch.zeros((), device=batch_idx.device)
+    counts = torch.zeros((), device=batch_idx.device)
+    for idx, w in zip(batch_idx, weights):
+        codes, targets = dataset.gather_batch(idx)
+        pred = font_renderer.apply(params, codes, mcfg)
+        per_sample = ((pred - targets) ** 2).mean(dim=(1, 2))
+        sums += (per_sample * w).sum()
+        counts += w.sum()
+    return sums / counts.clamp(min=1.0)
+
+
+def train_eval_epoch(state, dataset, batch_idx, val_batch_idx, val_weights, lr, generator, mcfg, tcfg):
+    """A training epoch then a validation pass -> (state, train loss, val
+    loss), both device scalars."""
+    state, train_loss = train_epoch(state, dataset, batch_idx, lr, generator, mcfg, tcfg)
+    return state, train_loss, eval_epoch(state.params, dataset, val_batch_idx, val_weights, mcfg)

@@ -3,28 +3,38 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure:
+Phases, each of which raises on failure, each with its seconds:
 
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
    the port from csrc/ (one nvcc per source, all at once), with the build
    time.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the serving path gives it: max abs error against the stated tolerance,
+   the main paths give it: max abs error against the stated tolerance,
    and times from CUDA events for the kernel, the plain version, one
    PyTorch library call computing the same function (a yardstick the port
    never calls), and the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate of their type).
-3. Render, the main path: full-width (123M-parameter) weights from a seed,
-   saved and loaded through the port's npz format, the 15 test strings
-   rendered to BMPs with both kernels on, the sheets checked against the
-   plain path on the same weights, then a 4096-sheet atlas timed in
-   glyphs/s.
+   3.35 TB/s or operations over the peak rate of their type). K1 and the
+   attention forward at the serving shapes; K2, K3 and K4 at M = 200 and
+   1024 rows of the 6400 x 19200 projection.
+3. Render: full-width (123M-parameter) weights from a seed, saved and
+   loaded through the port's npz format, the 15 test strings rendered to
+   BMPs with both kernels on, the sheets checked against the plain path on
+   the same weights, then a 4096-sheet atlas timed in glyphs/s.
 4. Serve: a RenderServer on a unix socket (batch 64, v2 attention, bf16
    frontend) answers 3 requests of different lengths, one longer than a
    batch; the replies must equal a direct render of the same strings.
-5. One JSON line listing every kernel with its launches on the main path
-   (phases 3 and 4; counts are set to 0 just before each phase and read
-   just after), its error and its times.
+5. Train at full width (default ModelConfig, batch 1024, weights from a
+   seed): the FiraCode corpus of 20480 samples (16 steps per epoch; only
+   the corpus is cut) from the port's fontgen, its first 4096 u8 sheets
+   checked against the numpy oracle; three epochs with use_pallas_output
+   (K1/K2/K3) and three with use_pallas_output + fused_dw_adamw (K1, K2,
+   K4); the train loss must fall and the val loss be finite. Then one step
+   with kernels against the plain step on the same weights and batch, the
+   trained weights through the npz file and rendered against the plain
+   path, steps/s of each configuration, and a profile of one step.
+6. One JSON line listing every kernel with its launches on the main paths
+   (phases 3, 4 and 5; counts are set to 0 just before each phase's drive
+   and read just after), its error and its times.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -51,6 +61,15 @@ BF16_TENSOR_FLOPS = 989e12
 F32_CUDA_CORE_FLOPS = 67e12
 
 K1_TOL = 1e-4  # f32 sums over K = 6400 of exact bf16 products, in another order
+# K2/K3/K4: f32 sums of exact bf16 products over N = 19200 (K2) or M rows
+# (K3, K4) in another order, relative to the largest value of the result.
+GRAD_REL_TOL = 1e-4
+K4_W_TOL = 1e-6  # w after one update: far below the 1e-3 learning rate
+K4_MU_REL_TOL = 2.0**-7  # a bf16 mu may round to the other neighbour: one bf16 step
+STEP_LOSS_REL_TOL = 1e-4  # one training step, kernels vs the plain path
+# mu/(1-b1) after one step from zero moments is dW: bf16 storage (2^-8) and
+# the cotangent's mask where outputs sit within an ulp of a bound.
+STEP_DW_REL_TOL = 1e-2
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}  # bf16: one rounding of O(1) values
 SHEET_TOL = 1e-4  # rendered sheets, kernels on vs the plain path (f32 frontend)
 # About 0.15 s at the H100's clock: longer than the host takes to queue one
@@ -156,6 +175,120 @@ def check_fused_output(ms_list=(15, 64, 1024), k=6400, n=19200) -> list[dict]:
     return rows
 
 
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], list[dict]]:
+    """K2 (dX) and K3 (dW) vs their plain versions at the training path's
+    row counts (the batch of 1024, and a ragged 200)."""
+    from ai_font_renderer_tpu_torch.ops.fused_output import (
+        fused_output_dw,
+        fused_output_dw_reference,
+        fused_output_dx,
+        fused_output_dx_reference,
+        fused_output_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bound = 1.0 / k**0.5
+    w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) * bound
+    b = (torch.rand(n, generator=g, device="cuda") * 2 - 1) * bound
+    w16 = w.to(torch.bfloat16)
+    dx_rows, dw_rows = [], []
+    for m in ms_list:
+        x = torch.relu(torch.randn(m, k, generator=g, device="cuda"))
+        out = fused_output_reference(x, w, b)
+        cot = torch.randn(m, n, generator=g, device="cuda") * (2.0 / (m * n))
+        gm16 = torch.where((out > 0) & (out < 1), cot, 0.0).to(torch.bfloat16)
+        x16 = x.to(torch.bfloat16)
+        bound_ms, bound_by = _bound(4 * (2 * m * n + k * n + m * k), 2 * m * k * n, BF16_TENSOR_FLOPS)
+        for name, fn, ref, args, lib, rows in (
+            ("K2 fused_output_dx", fused_output_dx, fused_output_dx_reference, (cot, out, w),
+             lambda: torch.mm(gm16, w16.t(), out_dtype=torch.float32), dx_rows),
+            ("K3 fused_output_dw", fused_output_dw, fused_output_dw_reference, (x, cot, out),
+             lambda: torch.mm(x16.t(), gm16, out_dtype=torch.float32), dw_rows),
+        ):
+            got, want = fn(*args), ref(*args)
+            torch.cuda.synchronize()
+            rel = _rel(got, want)
+            if not rel <= GRAD_REL_TOL:
+                raise AssertionError(f"{name} M={m}: max err {rel} of the largest value > {GRAD_REL_TOL}")
+            row = {
+                "shape": f"M={m},K={k},N={n}",
+                "max_abs_err": float((got - want).abs().max()),
+                "rel_err": rel,
+                "tol": f"{GRAD_REL_TOL} of max |plain|",
+                "ms": time_ms(lambda: fn(*args), 10),
+                "plain_ms": time_ms(lambda: ref(*args), 3),
+                # cuBLAS on operands masked and cast to bf16 outside the
+                # timed region: the product alone, f32 out.
+                "library_ms": time_ms(lib, 10),
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            print(f"[{name}] {json.dumps(row)}", flush=True)
+            rows.append(row)
+            del got, want
+    return dx_rows, dw_rows
+
+
+def check_dw_adamw(ms_list=(200, 1024), k=6400, n=19200) -> list[dict]:
+    """K4 vs its plain version at step 5, moments seeded non-zero (at t = 1
+    Adam's update is lr*sign(dW), which flips on rounding noise); bf16 mu as
+    the trainer keeps it."""
+    from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import fused_dw_adamw, fused_dw_adamw_reference
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    hyper = (1e-3, 5e-4, 0.9, 0.99)
+    rows = []
+    for m in ms_list:
+        x16 = torch.relu(torch.randn(m, k, generator=g, device="cuda")).to(torch.bfloat16)
+        gm16 = (torch.randn(m, n, generator=g, device="cuda") * (2.0 / (m * n))).to(torch.bfloat16)
+        w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) / k**0.5
+        mu = (torch.randn(k, n, generator=g, device="cuda") * 1e-7).to(torch.bfloat16)
+        nu = torch.rand(k, n, generator=g, device="cuda") * 1e-14 + 1e-16
+        ref = [t.clone() for t in (w, mu, nu)]
+        fused_dw_adamw(x16, gm16, w, mu, nu, *hyper, 5)
+        fused_dw_adamw_reference(x16, gm16, *ref, *hyper, 5)
+        torch.cuda.synchronize()
+        w_err = float((w - ref[0]).abs().max())
+        mu_err = float(((mu.float() - ref[1].float()).abs() - K4_MU_REL_TOL * ref[1].float().abs()).max())
+        nu_rel = _rel(nu, ref[2])
+        if not (w_err <= K4_W_TOL and mu_err <= 1e-5 * float(ref[1].float().abs().max()) and nu_rel <= GRAD_REL_TOL):
+            raise AssertionError(f"K4 M={m}: w err {w_err}, mu excess {mu_err}, nu rel {nu_rel}")
+        del ref
+        lib_w, lib_m, lib_v = w.clone(), mu.float(), nu.clone()
+        step_t = torch.tensor(5.0, device="cuda")
+
+        def library():
+            dw = torch.mm(x16.t(), gm16, out_dtype=torch.float32)
+            torch._fused_adamw_([lib_w], [dw], [lib_m], [lib_v], [], [step_t], lr=hyper[0],
+                                beta1=hyper[2], beta2=hyper[3], weight_decay=hyper[1], eps=1e-8,
+                                amsgrad=False, maximize=False)
+
+        state = (w.clone(), mu.clone(), nu.clone())
+        bound_ms, bound_by = _bound(
+            2 * m * k + 2 * m * n + k * n * (8 + 4 + 8), 2 * m * k * n, BF16_TENSOR_FLOPS
+        )
+        row = {
+            "shape": f"M={m},K={k},N={n},mu=bf16",
+            "max_abs_err": w_err,
+            "tol": f"w {K4_W_TOL}; mu one bf16 step; nu {GRAD_REL_TOL} of max",
+            "ms": time_ms(lambda: fused_dw_adamw(x16, gm16, w, mu, nu, *hyper, 5), 10),
+            "plain_ms": time_ms(lambda: fused_dw_adamw_reference(x16, gm16, *state, *hyper, 5), 3),
+            # Two calls: the dW product in cuBLAS (bf16 in, f32 out) and
+            # torch._fused_adamw_ with f32 moments (decoupled weight decay).
+            "library_ms": time_ms(library, 10),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        print(f"[K4 fused_dw_adamw] {json.dumps(row)}", flush=True)
+        rows.append(row)
+        del w, mu, nu, state, lib_w, lib_m, lib_v
+    return rows
+
+
 def _attn_weights(g, e=32):
     xavier = (6.0 / (e + e)) ** 0.5
 
@@ -229,20 +362,26 @@ def check_fused_attention(batches=(15, 64, 1024), s=100, e=32, heads=4) -> list[
     return rows
 
 
-def _reset_counts():
-    from ai_font_renderer_tpu_torch.ops import fused_attention, fused_attention2, fused_output
+def _kernel_fns():
+    from ai_font_renderer_tpu_torch import ops
 
-    fused_output.launches = fused_attention.launches = fused_attention2.launches = 0
+    return {
+        "fused_output": ops.fused_output,
+        "fused_attention": ops.fused_attention,
+        "fused_attention2": ops.fused_attention2,
+        "fused_output_dx": ops.fused_output_dx,
+        "fused_output_dw": ops.fused_output_dw,
+        "fused_dw_adamw": ops.fused_dw_adamw,
+    }
+
+
+def _reset_counts():
+    for fn in _kernel_fns().values():
+        fn.launches = 0
 
 
 def _counts() -> dict:
-    from ai_font_renderer_tpu_torch.ops import fused_attention, fused_attention2, fused_output
-
-    return {
-        "fused_output": fused_output.launches,
-        "fused_attention": fused_attention.launches,
-        "fused_attention2": fused_attention2.launches,
-    }
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
 def _atlas_strings(n: int, length: int, seed: int = 0) -> list[str]:
@@ -279,12 +418,36 @@ def _profile_atlas(params, strings, mcfg) -> None:
               flush=True)
 
 
-def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
+def _render_test_strings(params, mcfg, out_dir: str, tag: str) -> None:
+    """The 15 test strings to BMPs with the kernels of ``mcfg`` on; the
+    sheets must match the plain path on the same weights within SHEET_TOL
+    and the BMPs within one gray level."""
     from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
-    from ai_font_renderer_tpu_torch.config import ModelConfig, replace
+    from ai_font_renderer_tpu_torch.config import replace
     from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
+    from ai_font_renderer_tpu_torch.render import render_batch, render_strings
+
+    paths = render_strings(params, TEST_STRINGS, out_dir, mcfg)
+    if len(paths) != len(TEST_STRINGS):
+        raise AssertionError(f"{len(paths)} BMPs for {len(TEST_STRINGS)} strings")
+    images = np.stack([read_bmp(p) for p in paths])
+    if images.shape != (15, 80, 240):
+        raise AssertionError(f"BMPs decode to {images.shape}, want (15, 80, 240)")
+    plain_cfg = replace(mcfg, use_pallas_output=False, fused_attention=False, fused_attention_v2=False)
+    plain = render_batch(params, TEST_STRINGS, plain_cfg)
+    kern = render_batch(params, TEST_STRINGS, mcfg)
+    sheet_err = float(np.abs(kern - plain).max())
+    bmp_err = float(np.abs(images - np.round(np.clip(plain, 0, 1) * 255) / 255).max())
+    if not (np.isfinite(kern).all() and sheet_err <= SHEET_TOL and bmp_err <= 1 / 255 + 1e-6):
+        raise AssertionError(f"{tag}: sheets vs plain path: max err {sheet_err}, BMP err {bmp_err}")
+    print(f"[{tag}] 15 BMPs 80x240; sheets vs plain path max abs err {sheet_err:.3g} "
+          f"(tol {SHEET_TOL}), BMPs within {bmp_err * 255:.2f} gray levels", flush=True)
+
+
+def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
+    from ai_font_renderer_tpu_torch.config import ModelConfig
     from ai_font_renderer_tpu_torch.models import font_renderer
-    from ai_font_renderer_tpu_torch.render import render_atlas, render_batch, render_strings
+    from ai_font_renderer_tpu_torch.render import render_atlas
     from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config, save_params
 
     cfg = ModelConfig(use_pallas_output=True, fused_attention=True)
@@ -303,23 +466,9 @@ def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
     )
     del params
 
-    out_dir = os.path.join(workdir, "renders")
     _reset_counts()
-    paths = render_strings(loaded, TEST_STRINGS, out_dir, mcfg)
+    _render_test_strings(loaded, mcfg, os.path.join(workdir, "renders"), "render")
     strings_counts = _counts()
-    if len(paths) != len(TEST_STRINGS):
-        raise AssertionError(f"{len(paths)} BMPs for {len(TEST_STRINGS)} strings")
-    images = np.stack([read_bmp(p) for p in paths])
-    if images.shape != (15, 80, 240):
-        raise AssertionError(f"BMPs decode to {images.shape}, want (15, 80, 240)")
-    plain = render_batch(loaded, TEST_STRINGS, replace(mcfg, use_pallas_output=False, fused_attention=False))
-    kern = render_batch(loaded, TEST_STRINGS, mcfg)
-    sheet_err = float(np.abs(kern - plain).max())
-    bmp_err = float(np.abs(images - np.round(np.clip(plain, 0, 1) * 255) / 255).max())
-    if not (np.isfinite(kern).all() and sheet_err <= SHEET_TOL and bmp_err <= 1 / 255 + 1e-6):
-        raise AssertionError(f"sheets vs plain path: max err {sheet_err}, BMP err {bmp_err}")
-    print(f"[render] 15 BMPs 80x240; sheets vs plain path max abs err {sheet_err:.3g} "
-          f"(tol {SHEET_TOL}), BMPs within {bmp_err * 255:.2f} gray levels", flush=True)
 
     strings = _atlas_strings(4096, mcfg.max_length)
     torch.cuda.synchronize()
@@ -399,6 +548,148 @@ def phase_serve(params, workdir: str) -> dict:
     return counts
 
 
+def _steps_per_s(state, ds, batch_idx, mcfg, tcfg, steps: int = 8) -> float:
+    """Training steps per second on the card: host clock around ``steps``
+    steps after two warm ones, ending in a synchronize."""
+    from ai_font_renderer_tpu_torch.train.step import train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for i in range(2):
+        train_step(state, *ds.gather_batch(batch_idx[i]), 1e-3, gen, mcfg, tcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        train_step(state, *ds.gather_batch(batch_idx[i % len(batch_idx)]), 1e-3, gen, mcfg, tcfg)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def _profile_step(state, ds, idx, mcfg, tcfg, name: str) -> None:
+    """One training step under torch.profiler: wall time, device kernel
+    time, busy share, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+
+    from ai_font_renderer_tpu_torch.train.step import train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batch = ds.gather_batch(idx)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        train_step(state, *batch, 1e-3, gen, mcfg, tcfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(f"[profile] train step ({name}): wall {wall_ms:.2f} ms (profiled), device kernels "
+          f"{busy_ms:.2f} ms in {launches} launches, busy share {busy_ms / wall_ms:.3f}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}",
+              flush=True)
+
+
+def phase_train(workdir: str, card: str) -> dict:
+    """Phase 5: the trainer at full width through ``train()``, in both
+    kernel configurations, then the checks around it."""
+    from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, ModelConfig, TrainConfig, replace
+    from ai_font_renderer_tpu_torch.fontgen import bake_atlas, build_device_dataset, build_layouts
+    from ai_font_renderer_tpu_torch.fontgen.sheets import synthesize_sheets_host
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.train import train
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config, save_params
+
+    n_samples, epochs = 20480, 3
+    t0 = time.perf_counter()
+    atlas = bake_atlas(FIRACODE_PATH)
+    _, grids = build_layouts(atlas, n_samples)
+    ds = build_device_dataset(atlas, n_samples, device="cuda")
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    host = np.round(synthesize_sheets_host(atlas, grids[:4096]) * 255).astype(np.uint8)
+    dev = ds.targets_u8[:4096].cpu().numpy()
+    diff = np.abs(dev.astype(np.int16) - host.astype(np.int16))
+    print(f"[train] corpus {n_samples} FiraCode sheets on the card in {t_data:.2f} s; first 4096 u8 "
+          f"sheets vs numpy oracle: {int((diff > 0).sum())} bytes differ, max {int(diff.max())} "
+          "gray levels", flush=True)
+    if diff.max() > 1:
+        raise AssertionError(f"synthesized sheets differ from the oracle by {int(diff.max())} levels")
+
+    base = ModelConfig(use_pallas_output=True)
+    configs = {
+        "output": (base, TrainConfig(num_epochs=epochs, num_samples=n_samples, checkpoint_every=0)),
+        "fused": (base, TrainConfig(num_epochs=epochs, num_samples=n_samples, checkpoint_every=0,
+                                    fused_dw_adamw=True)),
+    }
+    counts = {k: 0 for k in _counts()}
+    results = {}
+    for name, (mcfg, tcfg) in configs.items():
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = train(ds, mcfg, tcfg, log=lambda msg, name=name: print(f"[train {name}] {msg}", flush=True))
+        torch.cuda.synchronize()
+        run_counts = _counts()
+        seconds = time.perf_counter() - t0
+        counts = {k: counts[k] + run_counts[k] for k in counts}
+        losses = [round(h["train_loss"], 6) for h in res.history]
+        vals = [h["val_loss"] for h in res.history]
+        print(f"[train {name}] {epochs} epochs in {seconds:.2f} s; train loss {losses}; val loss "
+              f"{[round(v, 6) for v in vals]}; launches {run_counts}", flush=True)
+        if not (losses[-1] < losses[0] and all(np.isfinite(vals))):
+            raise AssertionError(f"train {name}: the train loss did not fall or val is not finite")
+        results[name] = res
+    for kernel in ("fused_output_dx", "fused_output_dw", "fused_dw_adamw"):
+        if counts[kernel] <= 0:
+            raise AssertionError(f"training never launched {kernel}: {counts}")
+
+    # One step with kernels against the plain step: same weights, same
+    # batch, dropout off, fresh moments.
+    params = results["fused"].params
+    idx = torch.arange(1024, device="cuda")
+    batch = ds.gather_batch(idx)
+    no_drop = replace(base, dropout_rate=0.0, fc_dropout_rate=0.0)
+    plain_m, plain_t = replace(no_drop, use_pallas_output=False), TrainConfig()
+    step_checks = {}
+    for name, mcfg, tcfg in (("plain", plain_m, plain_t), ("output", no_drop, configs["output"][1]),
+                             ("fused", no_drop, configs["fused"][1])):
+        state = state_from_params(params, tcfg)
+        state, loss = train_step(state, *batch, 1e-3, torch.Generator(device="cuda"), mcfg, tcfg)
+        mu_w = state.mu_w if name == "fused" else state.mu["out_w"]
+        step_checks[name] = (float(loss), mu_w.float() / float(np.float32(1) - np.float32(0.9)))
+        del state
+    ref_loss, ref_dw = step_checks.pop("plain")
+    for name, (loss, dw) in step_checks.items():
+        loss_rel = abs(loss - ref_loss) / ref_loss
+        dw_rel = _rel(dw, ref_dw)
+        print(f"[train] one step, {name} vs plain: loss {loss:.8f} vs {ref_loss:.8f} (rel {loss_rel:.3g}, "
+              f"tol {STEP_LOSS_REL_TOL}); mu/(1-b1) of out_w max err {dw_rel:.3g} of its largest "
+              f"value (tol {STEP_DW_REL_TOL})", flush=True)
+        if not (loss_rel <= STEP_LOSS_REL_TOL and dw_rel <= STEP_DW_REL_TOL):
+            raise AssertionError(f"one step {name} vs plain: loss rel {loss_rel}, dW rel {dw_rel}")
+    del step_checks, ref_dw
+
+    path = os.path.join(workdir, "trained.npz")
+    save_params(params, path, base)
+    loaded, mcfg = load_params_with_config(path, base=base, device="cuda")
+    _render_test_strings(loaded, mcfg, os.path.join(workdir, "trained_renders"), "train render")
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    batch_idx = torch.randint(0, n_samples, (8, 1024), generator=g, device="cuda")
+    rates = {}
+    for name, mcfg, tcfg in (("plain", replace(base, use_pallas_output=False), TrainConfig()),
+                             ("output", *configs["output"]), ("fused", *configs["fused"])):
+        state = state_from_params(params, tcfg)
+        rates[name] = _steps_per_s(state, ds, batch_idx, mcfg, tcfg)
+        if name != "plain":
+            _profile_step(state, ds, batch_idx[0], mcfg, tcfg, name)
+        del state
+    print(f"[train] steps/s at batch 1024: {json.dumps(rates)} ({card})", flush=True)
+    return counts
+
+
 def _kernel_entry(name, source, replaces, rows, headline, launches) -> dict:
     head = next(r for r in rows if r["shape"] == headline)
     return {
@@ -432,15 +723,27 @@ def main() -> int:
     print(card, flush=True)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
-    phase_build()
+    phase_times = {}
 
-    k1_rows = check_fused_output()
-    attn_rows = check_fused_attention()
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_times[name] = round(time.perf_counter() - t0, 2)
+        print(f"[phase] {name}: {phase_times[name]} s", flush=True)
+        return out
+
+    timed("build", phase_build)
+    k1_rows = timed("check K1", check_fused_output)
+    attn_rows = timed("check attention", check_fused_attention)
+    dx_rows, dw_rows = timed("check K2/K3", check_backward)
+    k4_rows = timed("check K4", check_dw_adamw)
 
     with tempfile.TemporaryDirectory() as workdir:
-        params, render_counts = phase_render(workdir, card)
-        serve_counts = phase_serve(params, workdir)
-    launches = {k: render_counts[k] + serve_counts[k] for k in render_counts}
+        params, render_counts = timed("render", phase_render, workdir, card)
+        serve_counts = timed("serve", phase_serve, params, workdir)
+        del params
+        train_counts = timed("train", phase_train, workdir, card)
+    launches = {k: render_counts[k] + serve_counts[k] + train_counts[k] for k in render_counts}
 
     src = "ai_font_renderer_tpu_torch/csrc/"
     kernels = [
@@ -461,7 +764,23 @@ def main() -> int:
             [r for r in attn_rows if r["shape"].endswith("bfloat16")],
             "B=64,S=100,E=32,H=4,bfloat16", launches["fused_attention2"],
         ),
+        _kernel_entry(
+            "fused_output_dx", src + "fused_output.cu",
+            "ai_font_renderer_tpu/ops/fused_output.py:96", dx_rows,
+            "M=1024,K=6400,N=19200", launches["fused_output_dx"],
+        ),
+        _kernel_entry(
+            "fused_output_dw", src + "fused_output.cu",
+            "ai_font_renderer_tpu/ops/fused_output.py:142", dw_rows,
+            "M=1024,K=6400,N=19200", launches["fused_output_dw"],
+        ),
+        _kernel_entry(
+            "fused_dw_adamw", src + "fused_dw_adamw.cu",
+            "ai_font_renderer_tpu/ops/fused_dw_adamw.py:55", k4_rows,
+            "M=1024,K=6400,N=19200,mu=bf16", launches["fused_dw_adamw"],
+        ),
     ]
+    print(f"[phase] seconds by phase: {json.dumps(phase_times)}", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

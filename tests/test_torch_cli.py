@@ -39,9 +39,14 @@ def test_unknown_option_exits_1(capsys):
     ids=["train", "bare_no_weights", "render_no_weights"],
 )
 def test_training_and_missing_weights_exit_1(argv, capsys):
+    """Training (``--train``, or a bare run without weights) runs on the card
+    by default: without one it exits 1 and names --device cpu. A render
+    without weights exits 1 and says they were not found."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the rule is about its absence")
     assert cli.main(argv) == 1
     out = capsys.readouterr().out
-    assert "not ported" in out or "not found" in out
+    assert "device='cpu'" in out or "not found" in out
 
 
 @pytest.mark.parametrize(
@@ -143,3 +148,130 @@ def test_chip_smoke_refuses_without_a_card():
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
 
+
+
+def _fake_training(monkeypatch):
+    seen = {}
+
+    def fake_run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=False, device=None):
+        seen.update(mcfg=mcfg, tcfg=tcfg, font=font, checkpoint_dir=checkpoint_dir, resume=resume, device=device)
+        raise SystemExit(0)  # skip save/render
+
+    monkeypatch.setattr(cli, "run_training", fake_run_training)
+    return seen
+
+
+def test_train_flags_reach_configs(monkeypatch, tmp_path):
+    """The probes of tests/test_cli.py:130-159 on the port's flags."""
+    seen = _fake_training(monkeypatch)
+    with pytest.raises(SystemExit):
+        cli.main([
+            "--train", "--lr", "0.0005", "--leaky-clamp", "0.02", "--max-seconds", "90",
+            "--samples", "1200", "--epochs", "7", "--batch-size", "64", "--schedule", "cosine",
+            "--peak-lr", "0.003", "--checkpoint-dir", str(tmp_path / "ck"), "--resume",
+            "--output", str(tmp_path / "o"), "--device", "cpu",
+        ])
+    m, t = seen["mcfg"], seen["tcfg"]
+    assert m.leaky_clamp == 0.02 and not m.use_pallas_output
+    assert (t.learning_rate, t.max_train_seconds, t.num_samples, t.num_epochs) == (0.0005, 90, 1200, 7)
+    assert (t.batch_size, t.schedule, t.peak_learning_rate) == (64, "cosine", 0.003)
+    assert seen["checkpoint_dir"] == str(tmp_path / "ck") and seen["resume"]
+    assert seen["device"] == torch.device("cpu")
+
+
+def test_profile_fast_flag(monkeypatch, tmp_path):
+    """As tests/test_cli.py:230-254: --profile fast turns on the bf16
+    frontend, uint8 dropout masks and the hand-rolled backward (not with a
+    leaky clamp, which the hand-rolled step cannot take)."""
+    seen = _fake_training(monkeypatch)
+    out = ["--output", str(tmp_path / "o"), "--device", "cpu"]
+    with pytest.raises(SystemExit):
+        cli.main(["--train", "--profile", "fast", *out])
+    assert seen["mcfg"].bf16_frontend and seen["mcfg"].bits_dropout
+    assert seen["tcfg"].handrolled_bwd
+    with pytest.raises(SystemExit):
+        cli.main(["--train", "--profile", "fast", "--leaky-clamp", "0.1", *out])
+    assert seen["mcfg"].bf16_frontend and not seen["tcfg"].handrolled_bwd
+
+
+@pytest.mark.parametrize(
+    "kernels,pallas,fused",
+    [("none", False, False), ("output", True, False), ("fused", True, True)],
+)
+def test_kernels_flag_selects_the_projection_kernels(monkeypatch, tmp_path, kernels, pallas, fused):
+    seen = _fake_training(monkeypatch)
+    with pytest.raises(SystemExit):
+        cli.main(["--train", "--kernels", kernels, "--output", str(tmp_path / "o"), "--device", "cpu"])
+    assert seen["mcfg"].use_pallas_output == pallas and seen["tcfg"].fused_dw_adamw == fused
+    assert not seen["tcfg"].handrolled_bwd
+
+
+@pytest.mark.parametrize(
+    "argv,words",
+    [
+        (["--mesh", "3"], "item 15"),
+        (["--mesh", "2,1"], "item 15"),
+        (["--decoder", "conv"], "item 8"),
+        (["--decoder", "conv_ps"], "item 8"),
+        (["--decoder-channels", "8,8"], "item 8"),
+    ],
+)
+def test_later_slice_training_flags_exit_1(monkeypatch, tmp_path, capsys, argv, words):
+    _fake_training(monkeypatch)
+    assert cli.main(["--train", *argv, "--output", str(tmp_path / "o"), "--device", "cpu"]) == 1
+    assert words in capsys.readouterr().out
+    assert not os.path.exists(tmp_path / "o")
+
+
+def test_proportional_font_exits_1(tmp_path, capsys):
+    from ai_font_renderer_tpu_torch.config import MONTSERRAT_PATH
+
+    assert cli.main(["--train", "--font", MONTSERRAT_PATH, "--output", str(tmp_path / "o"), "--device", "cpu"]) == 1
+    assert "item 7" in capsys.readouterr().out
+
+
+@pytest.fixture
+def tiny_model(monkeypatch):
+    """The CLI's configs with the model narrowed to a CPU test size."""
+    from ai_font_renderer_tpu_torch.config import replace
+
+    configs = cli._configs
+
+    def small(args):
+        mcfg, tcfg = configs(args)
+        return replace(mcfg, max_length=16, hidden_dim=16, sheet_height=16, sheet_width=24), tcfg
+
+    monkeypatch.setattr(cli, "_configs", small)
+
+
+@pytest.mark.parametrize("kernels", ["none", "fused"])
+def test_tiny_train_on_cpu_writes_weights_and_bmps(tiny_model, tmp_path, monkeypatch, kernels):
+    """--train on the CPU: font_renderer.npz in the working directory, the
+    manifests and 15 BMPs in the output directory, and weights that load
+    back with their config."""
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config
+
+    monkeypatch.chdir(tmp_path)
+    out = str(tmp_path / "run")
+    rc = cli.main(["--train", "--device", "cpu", "--samples", "80", "--epochs", "2", "--batch-size", "16",
+                   "--output", out, "--kernels", kernels])
+    assert rc == 0
+    assert os.path.exists(tmp_path / "font_renderer.npz")
+    names = set(os.listdir(out))
+    assert {f"string_{i}.bmp" for i in range(15)} <= names
+    assert {"config.txt", "training_results.txt", "metrics.jsonl", "epoch_0"} <= names
+    assert read_bmp(os.path.join(out, "string_0.bmp")).shape == (16, 24)
+    params, mcfg = load_params_with_config(str(tmp_path / "font_renderer.npz"), device="cpu")
+    assert (mcfg.max_length, mcfg.hidden_dim, mcfg.sheet_width) == (16, 16, 24)
+    assert params["out_w"].shape == (256, 384)
+
+
+def test_bare_run_without_weights_trains(tiny_model, tmp_path, capsys):
+    weights = str(tmp_path / "w.npz")
+    out = str(tmp_path / "bare")
+    rc = cli.main(["--weights", weights, "--output", out, "--device", "cpu", "--samples", "48",
+                   "--epochs", "1", "--batch-size", "16"])
+    assert rc == 0
+    assert "No saved model found. Training a new model..." in capsys.readouterr().out
+    assert os.path.exists(weights)
+    assert {f"string_{i}.bmp" for i in range(15)} <= set(os.listdir(out))
