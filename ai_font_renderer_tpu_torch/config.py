@@ -8,13 +8,15 @@ same thing in both packages.
 Four fields select the Hopper kernels of this package instead of the plain
 PyTorch code: ``ModelConfig.use_pallas_output`` (ops/fused_output.py: K1
 forward, K2/K3 backward), ``ModelConfig.fused_attention`` and
-``fused_attention_v2`` (ops/fused_attention.py, forward only) and
+``fused_attention_v2`` (ops/fused_attention.py: K5/K6 and K7/K8, forward
+with dropout and backward, so both serve and train) and
 ``TrainConfig.fused_dw_adamw`` (ops/fused_dw_adamw.py, K4). The names stay
 those of the JAX package. Fields kept for config parity that gate nothing
 here: the TPU tile fields (``fused_attention_tile``, ``fa2_tile_fwd``,
-``fa2_tile_bwd``; the CUDA attention kernel takes any batch) and
-``TrainConfig.prng_impl`` (the port draws dropout from a
-``torch.Generator``, whatever JAX PRNG the field names).
+``fa2_tile_bwd``; the CUDA attention kernels take any batch, and their
+dropout mask does not depend on a tile) and ``TrainConfig.prng_impl``
+(the port draws dropout from a ``torch.Generator`` and, inside the
+attention kernels, from Philox, whatever JAX PRNG the field names).
 """
 
 from __future__ import annotations

@@ -26,14 +26,22 @@
 // and need no mask. wgmma, TMA and a persistent schedule are later work.
 //
 // Any M, K and N: rows and columns past the edge load as zero and are not
-// updated. 16-byte loads are used when K and N are multiples of 8 and both
-// operands are 16-byte aligned; otherwise every element is loaded on its own.
+// updated. 16-byte loads are used when the rows of both operands are
+// multiples of 8 elements long and both are 16-byte aligned; otherwise every
+// element is loaded on its own.
+//
+// A second entry point replaces the TPU kernel tools/ab_kernel_micro.py:
+// _kernel_xt (K9), K4 with X already transposed: xt [K, M] bf16, so the A
+// operand of dW = xt @ gm is row-major and its tile loads along M; b1 0.9,
+// b2 0.99 and wd 5e-4 are fixed by the caller as in that tool. Everything
+// else is K4's kernel (the template argument XT).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -43,10 +51,11 @@ constexpr int BM = 64;   // rows of K per tile
 constexpr int BN = 128;  // columns of N per tile
 constexpr int BK = 32;   // rows of M per step of the contraction
 constexpr int THREADS = 256;
-constexpr int A_LD = BM + 8;  // x tile [32 m][64 k]: the column-major A operand
-constexpr int B_LD = BN + 8;  // gm tile [32 m][128 n]
-constexpr int C_LD = BN + 4;  // floats
-constexpr int A_ELEMS = BK * A_LD;
+constexpr int A_LD = BM + 8;   // x tile [32 m][64 k]: the column-major A operand
+constexpr int AT_LD = BK + 8;  // xt tile [64 k][32 m]: the row-major A operand (K9)
+constexpr int B_LD = BN + 8;   // gm tile [32 m][128 n]
+constexpr int C_LD = BN + 4;   // floats
+constexpr int A_ELEMS = BK * A_LD > BM * AT_LD ? BK * A_LD : BM * AT_LD;
 constexpr int B_ELEMS = BK * B_LD;
 constexpr int A_VECS = BK * BM / 8 / THREADS;  // 8 bf16 per 16-byte load: 1
 constexpr int B_VECS = BK * BN / 8 / THREADS;  // 2
@@ -70,7 +79,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <typename MuT>
+// XT false: x is [M, K] (K4); true: x is xt [K, M] (K9).
+template <typename MuT, bool XT>
 __global__ void __launch_bounds__(THREADS)
 fused_dw_adamw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gm,
                       float* __restrict__ w, MuT* __restrict__ mu, float* __restrict__ nu,
@@ -99,9 +109,15 @@ fused_dw_adamw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
 #pragma unroll
     for (int i = 0; i < A_VECS; ++i) {
       const int f = tid + i * THREADS;
-      const int r = f / (BM / 8);
-      const int c = (f % (BM / 8)) * 8;
-      ra[i] = load8(x, (size_t)(m0 + r) * K, k0 + c, m0 + r < M, K, vec);
+      if constexpr (XT) {
+        const int r = f / (BK / 8);
+        const int c = (f % (BK / 8)) * 8;
+        ra[i] = load8(x, (size_t)(k0 + r) * M, m0 + c, k0 + r < K, M, vec);
+      } else {
+        const int r = f / (BM / 8);
+        const int c = (f % (BM / 8)) * 8;
+        ra[i] = load8(x, (size_t)(m0 + r) * K, k0 + c, m0 + r < M, K, vec);
+      }
     }
 #pragma unroll
     for (int i = 0; i < B_VECS; ++i) {
@@ -117,7 +133,10 @@ fused_dw_adamw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
 #pragma unroll
     for (int i = 0; i < A_VECS; ++i) {
       const int f = tid + i * THREADS;
-      *reinterpret_cast<uint4*>(&As[(f / (BM / 8)) * A_LD + (f % (BM / 8)) * 8]) = ra[i];
+      if constexpr (XT)
+        *reinterpret_cast<uint4*>(&As[(f / (BK / 8)) * AT_LD + (f % (BK / 8)) * 8]) = ra[i];
+      else
+        *reinterpret_cast<uint4*>(&As[(f / (BM / 8)) * A_LD + (f % (BM / 8)) * 8]) = ra[i];
     }
 #pragma unroll
     for (int i = 0; i < B_VECS; ++i) {
@@ -129,11 +148,16 @@ fused_dw_adamw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
 
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
+      using ALayout = typename std::conditional<XT, wmma::row_major, wmma::col_major>::type;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> fa[2];
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[kk * A_LD + wm * 32 + i * 16], A_LD);
+      for (int i = 0; i < 2; ++i) {
+        if constexpr (XT)
+          wmma::load_matrix_sync(fa[i], &As[(wm * 32 + i * 16) * AT_LD + kk], AT_LD);
+        else
+          wmma::load_matrix_sync(fa[i], &As[kk * A_LD + wm * 32 + i * 16], A_LD);
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
         wmma::load_matrix_sync(fb[j], &Bs[kk * B_LD + wn * 32 + j * 16], B_LD);
@@ -168,17 +192,31 @@ fused_dw_adamw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   }
 }
 
-template <typename MuT>
+template <typename MuT, bool XT>
 int launch(const void* x, const void* gm, float* w, void* mu, float* nu, int M, int K, int N,
            float lr, float wd, float b1, float b2, float c1, float c2, float eps,
            void* stream) {
-  const int vec = (K % 8 == 0) && (N % 8 == 0) &&
+  const int vec = ((XT ? M : K) % 8 == 0) && (N % 8 == 0) &&
                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gm)) % 16 == 0);
   const dim3 grid((K + BM - 1) / BM, (N + BN - 1) / BN);
-  fused_dw_adamw_kernel<MuT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_dw_adamw_kernel<MuT, XT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gm), w,
       static_cast<MuT*>(mu), nu, M, K, N, vec, lr, wd, b1, b2, c1, c2, eps);
   return (int)cudaGetLastError();
+}
+
+template <bool XT>
+int dispatch(const void* x, const void* gm, float* w, void* mu, float* nu, int M, int K, int N,
+             int mu_bf16, float lr, float wd, float b1, float b2, float c1, float c2, float eps,
+             void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
+  if (mu_bf16 == 0)
+    return launch<float, XT>(x, gm, w, mu, nu, M, K, N, lr, wd, b1, b2, c1, c2, eps, stream);
+  if (mu_bf16 == 1)
+    return launch<__nv_bfloat16, XT>(x, gm, w, mu, nu, M, K, N, lr, wd, b1, b2, c1, c2, eps,
+                                     stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -190,12 +228,12 @@ int launch(const void* x, const void* gm, float* w, void* mu, float* nu, int M, 
 extern "C" int afr_fused_dw_adamw(const void* x, const void* gm, float* w, void* mu, float* nu,
                                   int M, int K, int N, int mu_bf16, float lr, float wd, float b1,
                                   float b2, float c1, float c2, float eps, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
-  if (mu_bf16 == 0)
-    return launch<float>(x, gm, w, mu, nu, M, K, N, lr, wd, b1, b2, c1, c2, eps, stream);
-  if (mu_bf16 == 1)
-    return launch<__nv_bfloat16>(x, gm, w, mu, nu, M, K, N, lr, wd, b1, b2, c1, c2, eps,
-                                 stream);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(x, gm, w, mu, nu, M, K, N, mu_bf16, lr, wd, b1, b2, c1, c2, eps, stream);
+}
+
+// K9: as afr_fused_dw_adamw with xt [K, M] bf16 in place of x.
+extern "C" int afr_fused_dw_adamw_xt(const void* xt, const void* gm, float* w, void* mu, float* nu,
+                                     int M, int K, int N, int mu_bf16, float lr, float wd, float b1,
+                                     float b2, float c1, float c2, float eps, void* stream) {
+  return dispatch<true>(xt, gm, w, mu, nu, M, K, N, mu_bf16, lr, wd, b1, b2, c1, c2, eps, stream);
 }

@@ -19,8 +19,10 @@ probabilities and fc1's output) with masks drawn from the
 ``torch.Generator`` passed as ``generator``, in that order, and the leaky
 clamp when ``leaky_clamp`` > 0. JAX's key schedule cannot be reproduced
 here, so masks differ from the JAX package's; their distribution does
-not. The conv decoders raise ``NotImplementedError`` and name the slice
-that brings them; so does training through the fused attention kernels.
+not. With ``fused_attention`` or ``fused_attention_v2`` the attention's
+mask comes from the kernels' Philox under a seed drawn from ``generator``
+in its place in that order. The conv decoders raise
+``NotImplementedError`` and name the slice that brings them.
 """
 
 from __future__ import annotations
@@ -37,14 +39,6 @@ from ..device import resolve_device
 from ..ops.fused_attention import KEYS as ATTN_KEYS
 from ..ops.fused_attention import fused_attention, fused_attention2, fused_attention_reference
 from ..ops.fused_output import fused_output
-
-_ATTN_TRAIN = (
-    "training through the fused attention kernels (fused_attention / "
-    "fused_attention_v2) comes with slice 3 of the port, the attention "
-    "training slice (Philox dropout in K5/K7, the K6/K8 backward); train with "
-    "both flags off, the plain attention (the JAX trainer's default)"
-)
-
 
 def _conv_not_ported(cfg: ModelConfig) -> None:
     if cfg.decoder != "linear":
@@ -196,7 +190,10 @@ def _dropout(x: torch.Tensor, rate: float, generator, train: bool, bits: bool = 
         mask = draw < int(keep * 256)
     else:
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    # x / keep in x's dtype, as jnp rounds the Python scalar to it (0.8 is
+    # 0.80078125 in bf16); a 0-dim CPU tensor enters a CUDA op as a scalar.
+    scale = torch.tensor(keep, dtype=x.dtype)
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def attention(
@@ -233,9 +230,9 @@ def features(
     generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """codes [B, S] -> per-slot features [B, min(S, max_length), hidden].
-    ``train=True`` draws its dropout masks from ``generator``."""
-    if train and (cfg.fused_attention or cfg.fused_attention_v2):
-        raise NotImplementedError(_ATTN_TRAIN)
+    ``train=True`` draws its dropout masks from ``generator``: the
+    embedding's, then (with a fused attention flag) the attention kernel's
+    seed, or the plain attention's mask, then fc1's."""
     if train and generator is None:
         raise ValueError("train=True needs a torch.Generator for the dropout masks")
     S = min(codes.shape[1], cfg.max_length)
@@ -246,11 +243,15 @@ def features(
     x = _dropout(x, cfg.dropout_rate, generator, train, cfg.bits_dropout)
     x = x + params["pos"].to(dt)[:S]
 
-    weights = {k: params[k] for k in ATTN_KEYS}
-    if cfg.fused_attention_v2:
-        attn = fused_attention2(x, weights, cfg.num_heads)
-    elif cfg.fused_attention:
-        attn = fused_attention(x, weights, cfg.num_heads)
+    if cfg.fused_attention_v2 or cfg.fused_attention:
+        # The JAX package's seed = bits(k_attn) & 0x7FFFFFFF, drawn whether
+        # or not the rate is above 0.
+        rate, seed = 0.0, None
+        if train:
+            rate = cfg.dropout_rate
+            seed = torch.randint(0, 2**31, (1,), generator=generator, device=x.device, dtype=torch.int32)
+        entry = fused_attention2 if cfg.fused_attention_v2 else fused_attention
+        attn = entry(x, {k: params[k] for k in ATTN_KEYS}, cfg.num_heads, rate, seed)
     else:
         attn = attention(params, x, cfg, train=train, generator=generator)
     # LayerNorm statistics in f32 even under a bf16 frontend.

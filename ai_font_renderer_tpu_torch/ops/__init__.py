@@ -1,8 +1,20 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version."""
 
-from .fused_attention import fused_attention, fused_attention2, fused_attention_reference
-from .fused_dw_adamw import fused_dw_adamw, fused_dw_adamw_reference
+from .fused_attention import (
+    fused_attention,
+    fused_attention2,
+    fused_attention2_backward,
+    fused_attention_backward,
+    fused_attention_backward_reference,
+    fused_attention_reference,
+)
+from .fused_dw_adamw import (
+    fused_dw_adamw,
+    fused_dw_adamw_reference,
+    fused_dw_adamw_xt,
+    fused_dw_adamw_xt_reference,
+)
 from .fused_output import (
     FusedOutputFunction,
     fused_output,
@@ -18,9 +30,14 @@ __all__ = [
     "FusedOutputFunction",
     "fused_attention",
     "fused_attention2",
+    "fused_attention2_backward",
+    "fused_attention_backward",
+    "fused_attention_backward_reference",
     "fused_attention_reference",
     "fused_dw_adamw",
     "fused_dw_adamw_reference",
+    "fused_dw_adamw_xt",
+    "fused_dw_adamw_xt_reference",
     "fused_output",
     "fused_output_dw",
     "fused_output_dw_reference",

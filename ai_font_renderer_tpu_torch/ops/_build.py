@@ -5,7 +5,8 @@ into a shared library with a plain C interface, loaded through ``ctypes``:
 a build takes seconds, where an extension that includes PyTorch's headers
 takes minutes. Libraries go to ``_build/`` beside the package (listed in
 ``.gitignore``), named by a hash of their source, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import time:
+rebuilt and an unchanged one is reused (the headers, csrc/*.cuh, count as
+part of every source). Nothing here runs at import time:
 the CPU tests import every module, and the CPU has no ``nvcc``.
 """
 
@@ -44,9 +45,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of csrc/{name}.cu, named by a hash of the source and of
+    every header in csrc/ (which it may include)."""
+    digest = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:

@@ -1,20 +1,31 @@
-"""Fused multi-head self-attention block (forward, no dropout): the CUDA
-kernel and its plain version.
+"""Fused multi-head self-attention block with dropout, forward and backward:
+the CUDA kernels, their plain versions and the autograd functions.
 
 ``fused_attention`` and ``fused_attention2`` are the port's counterparts of
 the JAX package's two entry points (ai_font_renderer_tpu/ops/
-fused_attention.py, TPU kernels _fwd_kernel K5 and _fwd2_kernel K7). Those
-differ only in how the dropout mask travels to the backward, and at rate 0
-there is none, so both launch the same kernel, csrc/fused_attention.cu, on a
-CUDA tensor, for any batch, or raise. Each keeps its own launch count. On a
-CPU tensor they run the plain version, which is the model's attention math.
+fused_attention.py). Both are ``torch.autograd.Function``s over
+csrc/fused_attention.cu, giving gradients to x and to all eight weights:
 
-Training through these kernels comes with slice 3 of the port, the
-attention training slice: dropout (rate > 0) from a counter-based Philox in
-the kernel, and the backward kernels (K6, K8) behind a
-``torch.autograd.Function``. Until then both entry points raise on a rate
-above 0 and on any input that requires a gradient, rather than return a
-tensor through which no gradient flows.
+* v1 (``fused_attention``): forward K5 (``_fwd_kernel``), backward K6
+  (``_bwd_kernel``), which regenerates the dropout mask from the seed;
+* v2 (``fused_attention2``): forward K7 (``_fwd2_kernel``), which also
+  stores the keep mask as uint8 [B, H, S, S], backward K8 (``_bwd2_kernel``),
+  which reads it.
+
+Dropout on the probabilities draws from Philox4x32-10 keyed on the seed and
+each probability's flat offset (ops/philox.py, csrc/philox.cuh), so both
+versions, forward and backward, on the card and in the plain versions, see
+the same mask for the same seed. The seed is a 1-element int32 tensor on
+x's device that the kernels read from device memory; rate 0 needs none.
+
+On CUDA tensors the functions launch the kernels, for any batch, or raise;
+on CPU tensors they run the plain versions: the forward is the model's
+attention math with the mask applied where the TPU kernel applies it, the
+backward is the TPU kernel's backward written out line by line
+(``fused_attention_backward_reference``). Each kernel keeps its launch
+count: ``fused_attention.launches`` (K5), ``fused_attention2.launches``
+(K7), ``fused_attention_backward.launches`` (K6) and
+``fused_attention2_backward.launches`` (K8).
 """
 
 from __future__ import annotations
@@ -22,21 +33,35 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _build
+from .philox import dropout_keep, keep_threshold
 
 KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
 # Shared memory one block may use on sm_90 (232,448 bytes).
 _SMEM_LIMIT = 232448
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "afr_fused_attention_fwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int),
-    "afr_fused_attention_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
+    "afr_fused_attention_fwd": ([_P] * 12 + [_I] * 6 + [ctypes.c_uint, ctypes.c_float, _P], _I),
+    "afr_fused_attention_bwd": (
+        [_P] * 14 + [_I] * 6 + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, _P], _I,
+    ),
+    "afr_fused_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "afr_fused_attention_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
 }
 
 
-def fused_attention_reference(x: torch.Tensor, weights, heads: int, dropout=None) -> torch.Tensor:
+def keep_in(rate: float, dtype: torch.dtype) -> float:
+    """1 - rate rounded to ``dtype``: the TPU kernel divides the kept
+    probabilities by the Python scalar keep, which JAX rounds to the
+    probabilities' type (0.8 becomes 0.80078125 in bf16)."""
+    return float(torch.tensor(1.0 - rate, dtype=dtype))
+
+
+def fused_attention_reference(x: torch.Tensor, weights, heads: int, dropout=None, mask=None, rate: float = 0.0):
     """Plain multi-head self-attention, the math of the JAX package's
     models/font_renderer.py:attention. x [B, S, E] in f32 or bf16;
     ``weights`` holds wq/wk/wv/wo [E, E] (in -> out) and bq/bk/bv/bo [E].
@@ -45,7 +70,9 @@ def fused_attention_reference(x: torch.Tensor, weights, heads: int, dropout=None
     probabilities are rounded to x's dtype before P @ v, whose f32 sum is
     rounded back to x's dtype. ``dropout``, when given, maps the rounded
     probabilities [B, H, S, S] to their dropped-out values (the model's
-    training path).
+    training path). ``mask`` (bool or uint8 [B, H, S, S]) with ``rate`` is
+    the kernels' dropout instead: kept probabilities become p / keep in x's
+    dtype (``keep_in``), the others 0.
     """
     B, S, E = x.shape
     d = E // heads
@@ -61,36 +88,85 @@ def fused_attention_reference(x: torch.Tensor, weights, heads: int, dropout=None
     probs = torch.softmax(logits, dim=-1).to(dt)
     if dropout is not None:
         probs = dropout(probs)
+    if mask is not None:
+        # A 0-dim CPU tensor enters a CUDA op as a scalar: no copy to the
+        # device, which would wait for the stream.
+        keep = torch.tensor(keep_in(rate, dt), dtype=dt)
+        probs = torch.where(mask.bool(), probs / keep, torch.zeros((), dtype=dt, device=x.device))
     out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float()).to(dt)
     return out.reshape(B, S, E) @ weights["wo"].to(dt) + weights["bo"].to(dt)
 
 
-_SLICE_3 = (
-    "comes with slice 3 of the port, the attention training slice "
-    "(Philox dropout in the kernel, K6/K8 backward)"
-)
+def fused_attention_backward_reference(x, g, weights, heads: int, rate: float = 0.0, mask=None):
+    """Plain backward of the fused attention block: the TPU kernel's
+    ``_bwd_kernel`` (ai_font_renderer_tpu/ops/fused_attention.py:137-242)
+    written out line by line, for the whole batch at once, with its
+    roundings to x's dtype. ``mask`` (bool or uint8 [B, H, S, S]) is the
+    keep mask at ``rate`` > 0. Returns (dx in x's dtype, {key: f32 grad})."""
+    B, S, E = x.shape
+    d = E // heads
+    dt = x.dtype
+    scale = float(np.float32(1.0 / d**0.5))
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    x2 = x.float().reshape(B * S, E)
+    w = {k: rnd(weights[k]) for k in ("wq", "wk", "wv", "wo")}
+    q = rnd(x2 @ w["wq"] + weights["bq"]).reshape(B, S, heads, d)
+    k = rnd(x2 @ w["wk"] + weights["bk"]).reshape(B, S, heads, d)
+    v = rnd(x2 @ w["wv"] + weights["bv"]).reshape(B, S, heads, d)
+
+    g2 = g.to(dt).float().reshape(B * S, E)
+    dattn = g2 @ w["wo"].T
+    dbo = g2.sum(0)
+
+    logits = torch.einsum("bshd,bthd->bhst", q, k) * scale
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs_sm = p / p.sum(-1, keepdim=True)  # f32, before dropout
+    zero = torch.zeros((), device=x.device)
+    if rate > 0.0:
+        keep = mask.bool()
+        probs_used = torch.where(keep, rnd(rnd(probs_sm) / keep_in(rate, dt)), zero)
+    else:
+        probs_used = rnd(probs_sm)
+    dout = rnd(dattn).reshape(B, S, heads, d)
+    attn = torch.einsum("bhst,bthd->bshd", probs_used, v)
+    dprobs = torch.einsum("bshd,bthd->bhst", dout, v)
+    dv = torch.einsum("bhst,bshd->bthd", probs_used, dout)
+    if rate > 0.0:
+        dprobs = torch.where(keep, dprobs / float(np.float32(1.0 - rate)), zero)
+    inner = (dprobs * probs_sm).sum(-1, keepdim=True)
+    dlogits = rnd(probs_sm * (dprobs - inner) * scale)
+    dq = torch.einsum("bhst,bthd->bshd", dlogits, k)
+    dk = torch.einsum("bhst,bshd->bthd", dlogits, q)
+
+    attn, dq, dk, dv = (rnd(t.reshape(B * S, E)) for t in (attn, dq, dk, dv))
+    grads = {
+        "wq": x2.T @ dq, "wk": x2.T @ dk, "wv": x2.T @ dv, "wo": attn.T @ g2,
+        "bq": dq.sum(0), "bk": dk.sum(0), "bv": dv.sum(0), "bo": dbo,
+    }
+    dx = (dq @ w["wq"].T + dk @ w["wk"].T) + dv @ w["wv"].T
+    return dx.reshape(B, S, E).to(dt), grads
 
 
-def _check_trainable(x: torch.Tensor, weights, dropout_rate: float) -> None:
-    """Raise on what the forward-only kernel cannot give: dropout, or a
-    gradient to any input."""
-    if dropout_rate != 0.0:
-        raise NotImplementedError(f"dropout inside the fused attention kernel {_SLICE_3}; rate must be 0")
-    if torch.is_grad_enabled() and (x.requires_grad or any(weights[k].requires_grad for k in KEYS)):
-        raise NotImplementedError(
-            f"a gradient through the fused attention kernel {_SLICE_3}; "
-            "run it under torch.no_grad(), or train with fused_attention=False "
-            "and fused_attention_v2=False"
-        )
+def _check_seed(seed, x: torch.Tensor, rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if rate > 0.0 and (
+        not isinstance(seed, torch.Tensor) or seed.numel() != 1
+        or seed.dtype != torch.int32 or seed.device != x.device
+    ):
+        raise ValueError(f"dropout needs the seed as a 1-element int32 tensor on {x.device}")
 
 
-def _launch(x: torch.Tensor, weights, heads: int, entry) -> torch.Tensor:
-    """Launch the kernel on a CUDA tensor and add one to ``entry.launches``."""
+def _check_cuda(x: torch.Tensor, weights, heads: int) -> None:
+    """What the CUDA kernels take; raise on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"fused attention runs on cuda or cpu tensors, not {x.device}")
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, E], got {tuple(x.shape)}")
-    B, S, E = x.shape
+    E = x.shape[2]
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 or bfloat16 tensor")
     if E % heads or 32 % (E // heads):
@@ -103,41 +179,174 @@ def _launch(x: torch.Tensor, weights, heads: int, entry) -> torch.Tensor:
             or not t.is_contiguous() or t.device != x.device
         ):
             raise ValueError(f"{k} must be a contiguous float32 {shape} tensor on {x.device}")
+
+
+def _dtype_code(x: torch.Tensor) -> int:
+    return 0 if x.dtype == torch.float32 else 1
+
+
+def _launch_fwd(x, weights, heads, rate, seed, store_mask, entry):
+    """K5 (or K7 with ``store_mask``) on CUDA tensors -> (out, mask or
+    None); adds one to ``entry.launches``."""
+    _check_cuda(x, weights, heads)
+    B, S, E = x.shape
+    dropout = rate > 0.0
+    # The mask's source (0: rate 0, 1: drawn, 2: drawn and stored) picks the
+    # kernel's build.
+    mode = 0 if not dropout else (2 if store_mask else 1)
     lib = _build.load("fused_attention", _SIGNATURES)
-    if lib.afr_fused_attention_smem_bytes(S, E) > _SMEM_LIMIT:
+    if lib.afr_fused_attention_smem_bytes(S, E, mode) > _SMEM_LIMIT:
         raise ValueError(f"S={S}, E={E} needs more shared memory than one block has")
     out = torch.empty_like(x)
+    mask = torch.empty(B, heads, S, S, dtype=torch.uint8, device=x.device) if mode == 2 else None
     if B == 0:
-        return out
+        return out, mask
     with torch.cuda.device(x.device):
         rc = lib.afr_fused_attention_fwd(
             x.data_ptr(), *(weights[k].data_ptr() for k in KEYS), out.data_ptr(),
-            B, S, E, heads, 0 if x.dtype == torch.float32 else 1,
+            mask.data_ptr() if mask is not None else None,
+            seed.data_ptr() if dropout else None,
+            B, S, E, heads, _dtype_code(x), mode,
+            keep_threshold(rate) if dropout else 0, keep_in(rate, x.dtype) if dropout else 1.0,
             _build.stream_handle(x.device),
         )
     if rc != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA error {rc}")
     entry.launches += 1
-    return out
+    return out, mask
 
 
-def fused_attention(x: torch.Tensor, weights, heads: int, dropout_rate: float = 0.0) -> torch.Tensor:
-    """v1 entry point (K5): [B, S, E] -> [B, S, E] in x's dtype.
-    ``fused_attention.launches`` counts kernel launches."""
-    _check_trainable(x, weights, dropout_rate)
+def _split_grads(flat: torch.Tensor, E: int) -> dict:
+    ee = E * E
+    grads = {k: flat[i * ee : (i + 1) * ee].reshape(E, E) for i, k in enumerate(KEYS[:4])}
+    grads.update({k: flat[4 * ee + i * E : 4 * ee + (i + 1) * E] for i, k in enumerate(KEYS[4:])})
+    return grads
+
+
+def _launch_bwd(x, g, weights, heads, rate, seed, mask, entry):
+    """K6 (mask regenerated from ``seed``) or K8 (``mask`` read) on CUDA
+    tensors -> (dx, grads); adds one to ``entry.launches``. Each block
+    writes its sample's parameter gradients; their sum over the batch is
+    taken here, so no two runs differ in a bit."""
+    _check_cuda(x, weights, heads)
+    B, S, E = x.shape
+    g = g.to(x.dtype).contiguous()
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"g must match x {tuple(x.shape)} on {x.device}, got {tuple(g.shape)} on {g.device}")
+    if mask is not None and (
+        tuple(mask.shape) != (B, heads, S, S) or mask.dtype != torch.uint8
+        or not mask.is_contiguous() or mask.device != x.device
+    ):
+        raise ValueError(f"mask must be a contiguous uint8 {(B, heads, S, S)} tensor on {x.device}")
+    lib = _build.load("fused_attention", _SIGNATURES)
+    if lib.afr_fused_attention_bwd_smem_bytes(S, E, heads) > _SMEM_LIMIT:
+        raise ValueError(f"S={S}, E={E}, H={heads} needs more shared memory than one block has")
+    dx = torch.empty_like(x)
+    partials = torch.empty(B, 4 * E * E + 4 * E, dtype=torch.float32, device=x.device)
+    if B == 0:
+        return dx, _split_grads(partials.sum(0), E)
+    mode = 0 if rate == 0.0 else (2 if mask is not None else 1)
+    with torch.cuda.device(x.device):
+        rc = lib.afr_fused_attention_bwd(
+            x.data_ptr(), g.data_ptr(), *(weights[k].data_ptr() for k in KEYS),
+            mask.data_ptr() if mode == 2 else None, seed.data_ptr() if mode == 1 else None,
+            dx.data_ptr(), partials.data_ptr(), B, S, E, heads, _dtype_code(x), mode,
+            keep_threshold(rate) if mode else 0, keep_in(rate, x.dtype),
+            float(np.float32(1.0 - rate)), _build.stream_handle(x.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused attention backward kernel launch failed: CUDA error {rc}")
+    entry.launches += 1
+    return dx, _split_grads(partials.sum(0), E)
+
+
+def _keep_mask(x, heads, rate, seed):
+    """The plain keep mask of x's probabilities, from the seed."""
+    B, S, _ = x.shape
+    return dropout_keep(seed, (B, heads, S, S), rate)
+
+
+def fused_attention_backward(x, g, weights, heads: int, dropout_rate: float = 0.0, seed=None):
+    """K6: the v1 backward, the mask regenerated from ``seed``. x, g
+    [B, S, E] -> (dx in x's dtype, {key: f32 gradient})."""
+    _check_seed(seed, x, dropout_rate)
     if x.device.type == "cpu":
-        return fused_attention_reference(x, weights, heads)
-    return _launch(x, weights, heads, fused_attention)
+        mask = _keep_mask(x, heads, dropout_rate, seed) if dropout_rate > 0.0 else None
+        return fused_attention_backward_reference(x, g, weights, heads, dropout_rate, mask)
+    return _launch_bwd(x, g, weights, heads, dropout_rate, seed, None, fused_attention_backward)
 
 
-def fused_attention2(x: torch.Tensor, weights, heads: int, dropout_rate: float = 0.0) -> torch.Tensor:
-    """v2 entry point (K7), the same kernel at rate 0.
-    ``fused_attention2.launches`` counts kernel launches."""
-    _check_trainable(x, weights, dropout_rate)
+def fused_attention2_backward(x, g, weights, heads: int, dropout_rate: float = 0.0, mask=None):
+    """K8: the v2 backward, reading the keep mask (uint8 [B, H, S, S]) that
+    the forward stored."""
+    if dropout_rate > 0.0 and mask is None:
+        raise ValueError("the v2 backward at a rate above 0 needs the forward's mask")
     if x.device.type == "cpu":
-        return fused_attention_reference(x, weights, heads)
-    return _launch(x, weights, heads, fused_attention2)
+        return fused_attention_backward_reference(x, g, weights, heads, dropout_rate, mask)
+    return _launch_bwd(x, g, weights, heads, dropout_rate, None, mask, fused_attention2_backward)
+
+
+def _forward(x, weights, heads, rate, seed, stored):
+    """(out, the uint8 mask when ``stored`` and rate > 0, else None): K5 or
+    K7 on a CUDA tensor, the plain version on a CPU tensor."""
+    if x.device.type != "cpu":
+        return _launch_fwd(x, weights, heads, rate, seed, stored, fused_attention2 if stored else fused_attention)
+    mask = _keep_mask(x, heads, rate, seed) if rate > 0.0 else None
+    out = fused_attention_reference(x, weights, heads, mask=mask, rate=rate)
+    return out, mask.to(torch.uint8) if stored and mask is not None else None
+
+
+class _FusedAttention(torch.autograd.Function):
+    """out = attention(x, weights) with dropout; gradients to x and the
+    eight weights. ``stored`` selects v2 (K7 stores the mask, K8 reads it)
+    over v1 (K5, and K6 regenerates the mask)."""
+
+    @staticmethod
+    def forward(ctx, x, seed, rate, heads, stored, *w):
+        out, mask = _forward(x, dict(zip(KEYS, w)), heads, rate, seed, stored)
+        ctx.heads, ctx.rate, ctx.stored = heads, rate, stored
+        ctx.save_for_backward(x, seed, mask, *w)
+        if mask is not None:
+            ctx.mark_non_differentiable(mask)
+        return out, mask
+
+    @staticmethod
+    def backward(ctx, g, _g_mask):
+        x, seed, mask, *w = ctx.saved_tensors
+        weights = dict(zip(KEYS, w))
+        if ctx.stored:
+            dx, grads = fused_attention2_backward(x, g, weights, ctx.heads, ctx.rate, mask)
+        else:
+            dx, grads = fused_attention_backward(x, g, weights, ctx.heads, ctx.rate, seed)
+        return (dx, None, None, None, None, *(grads[k] for k in KEYS))
+
+
+def _apply(x, weights, heads, dropout_rate, seed, stored):
+    _check_seed(seed, x, dropout_rate)
+    x, rate = x.contiguous(), float(dropout_rate)
+    seed = seed if rate > 0.0 else None
+    return _FusedAttention.apply(x, seed, rate, heads, stored, *(weights[k] for k in KEYS))
+
+
+def fused_attention(x: torch.Tensor, weights, heads: int, dropout_rate: float = 0.0, seed=None) -> torch.Tensor:
+    """v1 entry point: [B, S, E] -> [B, S, E] in x's dtype, dropout at
+    ``dropout_rate`` from ``seed`` (a 1-element int32 tensor on x's device;
+    rate 0 needs none). Forward K5, backward K6.
+    ``fused_attention.launches`` counts K5 launches."""
+    return _apply(x, weights, heads, dropout_rate, seed, False)[0]
+
+
+def fused_attention2(x: torch.Tensor, weights, heads: int, dropout_rate: float = 0.0, seed=None,
+                     return_mask: bool = False):
+    """v2 entry point: as ``fused_attention``, with forward K7, which stores
+    the keep mask (uint8 [B, H, S, S], None at rate 0) for the backward, K8.
+    ``return_mask`` returns (out, mask). ``fused_attention2.launches`` counts
+    K7 launches."""
+    out, mask = _apply(x, weights, heads, dropout_rate, seed, True)
+    return (out, mask) if return_mask else out
 
 
 fused_attention.launches = 0
 fused_attention2.launches = 0
+fused_attention_backward.launches = 0
+fused_attention2_backward.launches = 0

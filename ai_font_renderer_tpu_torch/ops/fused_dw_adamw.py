@@ -17,6 +17,11 @@ The update is optax's AdamW as the JAX kernel writes it, in f32:
 
 with c1 = 1/(1-b1^t), c2 = 1/(1-b2^t) computed in float32 on the host from
 the step count t after its increment (``bias_corrections``).
+
+``fused_dw_adamw_xt`` is K9, the TPU kernel tools/ab_kernel_micro.py:
+_kernel_xt: the same update with x already transposed, xt [K, M], and the
+tool's fixed b1 = 0.9, b2 = 0.99 and wd = 5e-4. It is the second entry point
+of the same CUDA source.
 """
 
 from __future__ import annotations
@@ -28,12 +33,10 @@ import torch
 
 from . import _build
 
-_SIGNATURES = {
-    "afr_fused_dw_adamw": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 7 + [ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-}
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 7 + [ctypes.c_void_p], ctypes.c_int)
+_SIGNATURES = {"afr_fused_dw_adamw": _ARGS, "afr_fused_dw_adamw_xt": _ARGS}
+# K9's hyperparameters, fixed as tools/ab_kernel_micro.py:121-124 fixes them.
+XT_B1, XT_B2, XT_WD = 0.9, 0.99, 5e-4
 
 
 def bias_corrections(b1: float, b2: float, count: int) -> tuple[float, float]:
@@ -73,15 +76,42 @@ def fused_dw_adamw(x, gm, w, mu, nu, lr, wd, b1, b2, count, eps=1e-8):
         raise ValueError(f"count is the step after its increment and starts at 1, got {count}")
     if x.device.type == "cpu":
         return fused_dw_adamw_reference(x, gm, w, mu, nu, lr, wd, b1, b2, count, eps)
+    _launch("afr_fused_dw_adamw", x, gm, w, mu, nu, lr, wd, b1, b2, count, eps, transposed=False)
+    fused_dw_adamw.launches += 1
+    return w, mu, nu
+
+
+def fused_dw_adamw_xt_reference(xt, gm, w, mu, nu, lr, count):
+    """Plain version of K9: ``fused_dw_adamw_reference`` of xt^T."""
+    return fused_dw_adamw_reference(xt.T, gm, w, mu, nu, lr, XT_WD, XT_B1, XT_B2, count)
+
+
+def fused_dw_adamw_xt(xt, gm, w, mu, nu, lr, count):
+    """K9: the fused dW + AdamW with xt [K, M] (x transposed) bf16, b1 0.9,
+    b2 0.99 and wd 5e-4; otherwise as ``fused_dw_adamw``, in place.
+    ``fused_dw_adamw_xt.launches`` counts kernel launches."""
+    if count < 1:
+        raise ValueError(f"count is the step after its increment and starts at 1, got {count}")
+    if xt.device.type == "cpu":
+        return fused_dw_adamw_xt_reference(xt, gm, w, mu, nu, lr, count)
+    _launch("afr_fused_dw_adamw_xt", xt, gm, w, mu, nu, lr, XT_WD, XT_B1, XT_B2, count, 1e-8, transposed=True)
+    fused_dw_adamw_xt.launches += 1
+    return w, mu, nu
+
+
+def _launch(entry, x, gm, w, mu, nu, lr, wd, b1, b2, count, eps, transposed):
+    """Check the operands and launch ``entry`` on CUDA tensors, or raise.
+    x is [M, K], or [K, M] when ``transposed``."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_dw_adamw runs on cuda or cpu tensors, not {x.device}")
     x = x.to(torch.bfloat16).contiguous()
     gm = gm.to(torch.bfloat16).contiguous()
-    if x.dim() != 2 or gm.dim() != 2 or x.shape[0] != gm.shape[0]:
-        raise ValueError(f"expected x [M,K], gm [M,N]; got {tuple(x.shape)}, {tuple(gm.shape)}")
+    if x.dim() != 2 or gm.dim() != 2 or x.shape[1 if transposed else 0] != gm.shape[0]:
+        want = "xt [K,M]" if transposed else "x [M,K]"
+        raise ValueError(f"expected {want}, gm [M,N]; got {tuple(x.shape)}, {tuple(gm.shape)}")
     if gm.device != x.device:
         raise ValueError(f"gm must be on {x.device}, not {gm.device}")
-    m, k = x.shape
+    k, m = x.shape if transposed else x.shape[::-1]
     n = gm.shape[1]
     for name, t, dtypes in (
         ("w", w, (torch.float32,)),
@@ -97,15 +127,14 @@ def fused_dw_adamw(x, gm, w, mu, nu, lr, wd, b1, b2, count, eps=1e-8):
     c1, c2 = bias_corrections(b1, b2, count)
     with torch.cuda.device(x.device):
         lib = _build.load("fused_dw_adamw", _SIGNATURES)
-        rc = lib.afr_fused_dw_adamw(
+        rc = getattr(lib, entry)(
             x.data_ptr(), gm.data_ptr(), w.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             m, k, n, int(mu.dtype == torch.bfloat16),
             lr, wd, b1, b2, c1, c2, eps, _build.stream_handle(x.device),
         )
     if rc != 0:
-        raise RuntimeError(f"fused_dw_adamw kernel launch failed: CUDA error {rc}")
-    fused_dw_adamw.launches += 1
-    return w, mu, nu
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
 
 
 fused_dw_adamw.launches = 0
+fused_dw_adamw_xt.launches = 0

@@ -15,7 +15,12 @@ Phases, each of which raises on failure, each with its seconds:
    never calls), and the least time the card could take (bytes over
    3.35 TB/s or operations over the peak rate of their type). K1 and the
    attention forward at the serving shapes; K2, K3 and K4 at M = 200 and
-   1024 rows of the 6400 x 19200 projection.
+   1024 rows of the 6400 x 19200 projection; the attention forward with
+   dropout 0.2 (K5 in f32, K7 in bf16 and f32), K7's stored mask byte for
+   byte against the plain Philox mask, and the backward kernels K6 and K8
+   at batch 1024 in f32 and bf16; K9 (K4 on a transposed x) at M = 1024,
+   then the K4/K9 A/B of tools/ab_kernel_micro.py, whose launches are K9's
+   main path.
 3. Render: full-width (123M-parameter) weights from a seed, saved and
    loaded through the port's npz format, the 15 test strings rendered to
    BMPs with both kernels on, the sheets checked against the plain path on
@@ -28,13 +33,18 @@ Phases, each of which raises on failure, each with its seconds:
    the corpus is cut) from the port's fontgen, its first 4096 u8 sheets
    checked against the numpy oracle; three epochs with use_pallas_output
    (K1/K2/K3) and three with use_pallas_output + fused_dw_adamw (K1, K2,
-   K4); the train loss must fall and the val loss be finite. Then one step
-   with kernels against the plain step on the same weights and batch, the
-   trained weights through the npz file and rendered against the plain
-   path, steps/s of each configuration, and a profile of one step.
-6. One JSON line listing every kernel with its launches on the main paths
-   (phases 3, 4 and 5; counts are set to 0 just before each phase's drive
-   and read just after), its error and its times.
+   K4); then attention training through the attention kernels at dropout
+   0.2: three epochs of `attn_v1` (K1, K2, K4 and K5/K6, f32 frontend) and
+   three of `attn_v2_fast` (the fast profile: bf16 frontend, bits dropout,
+   hand-rolled step with remat "dots", and K7/K8); the train loss must fall
+   and the val loss be finite. Then one step with kernels against the
+   plain step on the same weights and batch (dropout off) for each
+   configuration, the trained weights through the npz file and rendered
+   against the plain path, steps/s of each configuration, and a profile of
+   one step.
+6. One JSON line listing every kernel (K1-K9) with its launches on the
+   main paths (phases 3, 4 and 5 and the K4/K9 A/B; counts are set to 0
+   just before each drive and read just after), its error and its times.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -71,6 +81,22 @@ STEP_LOSS_REL_TOL = 1e-4  # one training step, kernels vs the plain path
 # the cotangent's mask where outputs sit within an ulp of a bound.
 STEP_DW_REL_TOL = 1e-2
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}  # bf16: one rounding of O(1) values
+DROPOUT = 0.2  # the model's attention dropout rate
+# K6/K8 against the plain backward, relative to the largest value (dx: its
+# own; the weights: the largest of the eight, since dbk is 0 in exact
+# arithmetic). f32: sums in another order. bf16: dlogits, dq, dk, dv and attn
+# are rounded to bf16, and an f32 value that differs in its last bits may
+# round to the other bf16 neighbour (2^-8 relative).
+ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# One step through the attention kernels against the plain step, dropout
+# off, f32 moments: the attention weights' mu/(1-b1) (their gradient)
+# relative to the largest of the eight. f32 frontend: sums in another order,
+# through K1/K2's bf16 products and the clamp mask. bf16 frontend: the
+# kernels round q/k/v once after f32 sums and the bias, the plain attention
+# after the bf16 product and again after the bias, so the step loss moves
+# by bf16 roundings too.
+STEP_ATTN_GRAD_TOL = {"f32": 1e-3, "bf16": 5e-2}
+STEP_LOSS_BF16_TOL = 1e-2
 SHEET_TOL = 1e-4  # rendered sheets, kernels on vs the plain path (f32 frontend)
 # About 0.15 s at the H100's clock: longer than the host takes to queue one
 # timing loop, so the timed calls run back to back on the device.
@@ -119,6 +145,14 @@ def _bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _attn_peak(dt) -> float:
+    """Peak rate for the attention kernels' products. In bf16 every operand
+    of every product is rounded to bf16 first (f32 sums), so tensor cores
+    would give the same results: the bf16 tensor rate. In f32 the CUDA
+    cores' rate."""
+    return BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_CUDA_CORE_FLOPS
 
 
 def phase_build() -> float:
@@ -301,6 +335,22 @@ def _attn_weights(g, e=32):
     return w
 
 
+def _attn_library(e, heads, w, dt):
+    """PyTorch's multi-head attention (SDPA inside) on weights cast to
+    ``dt`` outside the timed region, packed as it takes them."""
+    in_w = torch.cat([w["wq"].T, w["wk"].T, w["wv"].T]).contiguous().to(dt)
+    in_b = torch.cat([w["bq"], w["bk"], w["bv"]]).to(dt)
+    wo, bo = w["wo"].T.contiguous().to(dt), w["bo"].to(dt)
+
+    def mha(xt, rate, training, params=(in_w, in_b, wo, bo)):
+        return torch.nn.functional.multi_head_attention_forward(
+            xt, xt, xt, e, heads, params[0], params[1], None, None, False, rate, params[2], params[3],
+            training=training, need_weights=False,
+        )[0]
+
+    return mha, (in_w, in_b, wo, bo)
+
+
 def check_fused_attention(batches=(15, 64, 1024), s=100, e=32, heads=4) -> list[dict]:
     """The attention kernel vs its plain version, f32 and bf16, through both
     entry points (one kernel); each dtype is timed through the entry point
@@ -313,11 +363,9 @@ def check_fused_attention(batches=(15, 64, 1024), s=100, e=32, heads=4) -> list[
 
     g = torch.Generator(device="cuda").manual_seed(2)
     w = _attn_weights(g, e)
-    in_w = torch.cat([w["wq"].T, w["wk"].T, w["wv"].T]).contiguous()
-    in_b = torch.cat([w["bq"], w["bk"], w["bv"]])
     rows = []
     for dt in (torch.float32, torch.bfloat16):
-        lib_w = (in_w.to(dt), in_b.to(dt), w["wo"].T.contiguous().to(dt), w["bo"].to(dt))
+        mha, _ = _attn_library(e, heads, w, dt)
         fn = fused_attention if dt == torch.float32 else fused_attention2
         for bsz in batches:
             x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
@@ -337,7 +385,7 @@ def check_fused_attention(batches=(15, 64, 1024), s=100, e=32, heads=4) -> list[
             item = x.element_size()
             ops = bsz * (8 * s * e * e + 4 * s * s * e)
             bound_ms, bound_by = _bound(
-                2 * bsz * s * e * item + 4 * (4 * e * e + 4 * e), ops, F32_CUDA_CORE_FLOPS
+                2 * bsz * s * e * item + 4 * (4 * e * e + 4 * e), ops, _attn_peak(dt)
             )
             row = {
                 "shape": f"B={bsz},S={s},E={e},H={heads},{str(dt).replace('torch.', '')}",
@@ -347,19 +395,255 @@ def check_fused_attention(batches=(15, 64, 1024), s=100, e=32, heads=4) -> list[
                 "plain_ms": time_ms(lambda: fused_attention_reference(x, w, heads), iters),
                 # One call to PyTorch's multi-head attention (SDPA inside),
                 # weights cast to x's dtype once outside the timed region.
-                "library_ms": time_ms(
-                    lambda: torch.nn.functional.multi_head_attention_forward(
-                        xt, xt, xt, e, heads, lib_w[0], lib_w[1], None, None, False,
-                        0.0, lib_w[2], lib_w[3], training=False, need_weights=False,
-                    ),
-                    iters,
-                ),
+                "library_ms": time_ms(lambda: mha(xt, 0.0, False), iters),
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
             }
             print(f"[K5/K7 fused_attention] {json.dumps(row)}", flush=True)
             rows.append(row)
     return rows
+
+
+def check_attention_dropout(bsz=1024, s=100, e=32, heads=4) -> list[dict]:
+    """K5 (v1) and K7 (v2) at dropout 0.2 against the plain version fed the
+    same seed (its Philox gives the same mask, so values compare, with
+    ATTN_TOL); K7's stored mask byte for byte against the plain mask; K5's
+    output bit for bit against K7's in f32, so K5 drew K7's mask."""
+    from ai_font_renderer_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention2,
+        fused_attention_reference,
+    )
+    from ai_font_renderer_tpu_torch.ops.philox import dropout_keep
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    w = _attn_weights(g, e)
+    seed = torch.tensor([20240917], dtype=torch.int32, device="cuda")
+    shape = (bsz, heads, s, s)
+    rows = []
+    for name, dt in (("K5 v1", torch.float32), ("K7 v2", torch.bfloat16), ("K7 v2", torch.float32)):
+        x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
+        v2 = name.startswith("K7")
+        out2, mask = fused_attention2(x, w, heads, DROPOUT, seed, return_mask=True)
+        out = out2 if v2 else fused_attention(x, w, heads, DROPOUT, seed)
+        plain_mask = dropout_keep(seed, shape, DROPOUT)
+        want = fused_attention_reference(x, w, heads, mask=plain_mask, rate=DROPOUT)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        tol = ATTN_TOL[dt]
+        masks_equal = torch.equal(mask, plain_mask.to(torch.uint8))
+        keep_rate = float(mask.float().mean())
+        if not (err <= tol and masks_equal and torch.equal(out, out2)):
+            raise AssertionError(
+                f"{name} dropout {dt}: max abs err {err} (tol {tol}), stored mask equals the plain "
+                f"mask: {masks_equal}, K5 equals K7: {torch.equal(out, out2)}")
+        fn = fused_attention2 if v2 else fused_attention
+        item = x.element_size()
+        mask_bytes = bsz * heads * s * s if v2 else 0
+        # The products only: the Philox integer work has no rate in the
+        # table of peaks and is left out of the bound.
+        bound_ms, bound_by = _bound(2 * bsz * s * e * item + 4 * (4 * e * e + 4 * e) + mask_bytes,
+                                    bsz * (8 * s * e * e + 4 * s * s * e), _attn_peak(dt))
+        mha, _ = _attn_library(e, heads, w, dt)
+        xt = x.transpose(0, 1)
+        with torch.no_grad():
+            library_ms = time_ms(lambda: mha(xt, DROPOUT, True), 50)
+        row = {
+            "shape": f"B={bsz},S={s},E={e},H={heads},{str(dt).replace('torch.', '')},dropout={DROPOUT}",
+            "max_abs_err": err,
+            "tol": tol,
+            "keep_rate": keep_rate,
+            "mask_equal": masks_equal,
+            "ms": time_ms(lambda: fn(x, w, heads, DROPOUT, seed), 50),
+            # The plain mask (Philox in int64 tensor ops) and the plain
+            # forward: what the kernel computes.
+            "plain_ms": time_ms(lambda: fused_attention_reference(
+                x, w, heads, mask=dropout_keep(seed, shape, DROPOUT), rate=DROPOUT), 10),
+            # PyTorch's attention forward with its own dropout, no grad.
+            "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        print(f"[{name} fused_attention dropout] keep rate {keep_rate:.6f} (expected "
+              f"{1 - DROPOUT}); stored mask equals the plain Philox mask: {masks_equal}; "
+              f"{json.dumps(row)}", flush=True)
+        rows.append((name, row))
+        del out, out2, mask, plain_mask, want
+    return rows
+
+
+def check_attention_backward(bsz=1024, s=100, e=32, heads=4) -> tuple[list[dict], list[dict]]:
+    """K6 (mask regenerated) and K8 (mask read) at dropout 0.2 against
+    fused_attention_backward_reference with the plain mask, f32 and bf16,
+    within ATTN_BWD_TOL; K6 and K8 must give the same bits. The library
+    time is PyTorch's attention forward + backward under autograd with
+    dropout 0.2, set against K5+K6 (v1) and K7+K8 (v2)."""
+    from ai_font_renderer_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention2,
+        fused_attention2_backward,
+        fused_attention_backward,
+        fused_attention_backward_reference,
+    )
+    from ai_font_renderer_tpu_torch.ops.philox import dropout_keep
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    w = _attn_weights(g, e)
+    seed = torch.tensor([7], dtype=torch.int32, device="cuda")
+    shape = (bsz, heads, s, s)
+    mask = dropout_keep(seed, shape, DROPOUT).to(torch.uint8)
+    k6_rows, k8_rows = [], []
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
+        gy = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
+        k6 = fused_attention_backward(x, gy, w, heads, DROPOUT, seed)
+        k8 = fused_attention2_backward(x, gy, w, heads, DROPOUT, mask)
+        want_dx, want_dw = fused_attention_backward_reference(x, gy, w, heads, DROPOUT, mask)
+        torch.cuda.synchronize()
+        dx_rel = _rel(k6[0].float(), want_dx.float())
+        wmax = max(float(v.abs().max()) for v in want_dw.values())
+        w_rel = max(float((k6[1][k] - want_dw[k]).abs().max()) for k in want_dw) / wmax
+        same = torch.equal(k6[0], k8[0]) and all(torch.equal(k6[1][k], k8[1][k]) for k in want_dw)
+        tol = ATTN_BWD_TOL[dt]
+        if not (dx_rel <= tol and w_rel <= tol and same):
+            raise AssertionError(f"K6/K8 {dt}: dx rel err {dx_rel}, weight grads rel err {w_rel} "
+                                 f"(tol {tol}); K6 and K8 give the same bits: {same}")
+        item = x.element_size()
+        mha, params = _attn_library(e, heads, w, dt)
+        lib_params = [p.clone().requires_grad_() for p in params]
+        xt = x.transpose(0, 1).detach().requires_grad_()
+        gt = gy.transpose(0, 1)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            mha(xt, DROPOUT, True, lib_params), [xt, *lib_params], gt), 20)
+        tag = str(dt).replace("torch.", "")
+        for name, got, fn, args, fwd, plain, mask_bytes, rows in (
+            ("K6 fused_attention_bwd", k6, fused_attention_backward, (x, gy, w, heads, DROPOUT, seed),
+             fused_attention,
+             lambda: fused_attention_backward_reference(
+                 x, gy, w, heads, DROPOUT, dropout_keep(seed, shape, DROPOUT)), 0, k6_rows),
+            ("K8 fused_attention2_bwd", k8, fused_attention2_backward, (x, gy, w, heads, DROPOUT, mask),
+             fused_attention2,
+             lambda: fused_attention_backward_reference(x, gy, w, heads, DROPOUT, mask), mask.numel(), k8_rows),
+        ):
+            # x and g read, dx written, the weights read and their eight
+            # gradients written (the per-sample sums are the kernel's own
+            # choice), K8's mask read; products: 11 [S,E]x[E,E] and 6
+            # [S,S]x[S,d] per head.
+            bound_ms, bound_by = _bound(
+                3 * bsz * s * e * item + 2 * 4 * (4 * e * e + 4 * e) + mask_bytes,
+                bsz * (22 * s * e * e + 12 * s * s * e), _attn_peak(dt),
+            )
+            ms = time_ms(lambda: fn(*args), 20)
+            fwd_ms = time_ms(lambda: fwd(x, w, heads, DROPOUT, seed), 20)
+            row = {
+                "shape": f"B={bsz},S={s},E={e},H={heads},{tag},dropout={DROPOUT}",
+                "max_abs_err": float((got[0].float() - want_dx.float()).abs().max()),
+                "dx_rel_err": dx_rel,
+                "dw_rel_err": w_rel,
+                "tol": f"{tol} of max |plain|",
+                "ms": ms,
+                "plain_ms": time_ms(plain, 5),
+                # Forward + backward of PyTorch's attention with dropout
+                # under autograd: compare with fwd_plus_bwd_ms.
+                "library_ms": library_ms,
+                "fwd_plus_bwd_ms": fwd_ms + ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            print(f"[{name}] {json.dumps(row)}", flush=True)
+            rows.append(row)
+        del k6, k8, want_dx, want_dw, lib_params, xt
+    return k6_rows, k8_rows
+
+
+def check_dw_adamw_xt(m=1024, k=6400, n=19200) -> list[dict]:
+    """K9 (K4 with x transposed to [K, M]; b1 0.9, b2 0.99, wd 5e-4 fixed)
+    against its plain version at step 5 with seeded moments and bf16 mu,
+    with K4's tolerances."""
+    from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import (
+        XT_B1,
+        XT_B2,
+        XT_WD,
+        fused_dw_adamw_xt,
+        fused_dw_adamw_xt_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    xt = torch.relu(torch.randn(k, m, generator=g, device="cuda")).to(torch.bfloat16)
+    gm16 = (torch.randn(m, n, generator=g, device="cuda") * (2.0 / (m * n))).to(torch.bfloat16)
+    w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) / k**0.5
+    mu = (torch.randn(k, n, generator=g, device="cuda") * 1e-7).to(torch.bfloat16)
+    nu = torch.rand(k, n, generator=g, device="cuda") * 1e-14 + 1e-16
+    ref = [t.clone() for t in (w, mu, nu)]
+    fused_dw_adamw_xt(xt, gm16, w, mu, nu, 1e-3, 5)
+    fused_dw_adamw_xt_reference(xt, gm16, *ref, 1e-3, 5)
+    torch.cuda.synchronize()
+    w_err = float((w - ref[0]).abs().max())
+    mu_err = float(((mu.float() - ref[1].float()).abs() - K4_MU_REL_TOL * ref[1].float().abs()).max())
+    nu_rel = _rel(nu, ref[2])
+    if not (w_err <= K4_W_TOL and mu_err <= 1e-5 * float(ref[1].float().abs().max()) and nu_rel <= GRAD_REL_TOL):
+        raise AssertionError(f"K9 M={m}: w err {w_err}, mu excess {mu_err}, nu rel {nu_rel}")
+    del ref
+    state = (w.clone(), mu.clone(), nu.clone())
+    lib_w, lib_m, lib_v = w.clone(), mu.float(), nu.clone()
+    step_t = torch.tensor(5.0, device="cuda")
+
+    def library():
+        dw = torch.mm(xt, gm16, out_dtype=torch.float32)
+        torch._fused_adamw_([lib_w], [dw], [lib_m], [lib_v], [], [step_t], lr=1e-3, beta1=XT_B1,
+                            beta2=XT_B2, weight_decay=XT_WD, eps=1e-8, amsgrad=False, maximize=False)
+
+    bound_ms, bound_by = _bound(2 * m * k + 2 * m * n + k * n * (8 + 4 + 8), 2 * m * k * n, BF16_TENSOR_FLOPS)
+    row = {
+        "shape": f"M={m},K={k},N={n},mu=bf16,xt",
+        "max_abs_err": w_err,
+        "tol": f"w {K4_W_TOL}; mu one bf16 step; nu {GRAD_REL_TOL} of max",
+        "ms": time_ms(lambda: fused_dw_adamw_xt(xt, gm16, w, mu, nu, 1e-3, 5), 10),
+        "plain_ms": time_ms(lambda: fused_dw_adamw_xt_reference(xt, gm16, *state, 1e-3, 5), 3),
+        "library_ms": time_ms(library, 10),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    print(f"[K9 fused_dw_adamw_xt] {json.dumps(row)}", flush=True)
+    return [row]
+
+
+def phase_ab_xt(m=1024, k=6400, n=19200, iters=10) -> dict:
+    """The K4/K9 A/B of tools/ab_kernel_micro.py (main and main_xt), the
+    only path that runs K9: x [M, K] and xt [K, M] bf16, gm * 1e-4, w
+    random, zero moments (mu bf16), step 3, each chained over ``iters``
+    updates of one state, timed in turns K4, K9, K9, K4 by CUDA events."""
+    from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import (
+        XT_B1,
+        XT_B2,
+        XT_WD,
+        fused_dw_adamw,
+        fused_dw_adamw_xt,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    xt = x.T.contiguous()
+    gm = (torch.randn(m, n, generator=g, device="cuda") * 1e-4).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=g, device="cuda") * 0.01
+    mu = torch.zeros(k, n, device="cuda", dtype=torch.bfloat16)
+    nu = torch.zeros(k, n, device="cuda")
+    runs = {
+        "K4": lambda: fused_dw_adamw(x, gm, w, mu, nu, 1e-3, XT_WD, XT_B1, XT_B2, 3),
+        "K9": lambda: fused_dw_adamw_xt(xt, gm, w, mu, nu, 1e-3, 3),
+    }
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = {"K4": [], "K9": []}
+    for name in ("K4", "K9", "K9", "K4"):
+        times[name].append(time_ms(runs[name], iters))
+    counts = _counts()
+    ab = {name: sum(t) / len(t) for name, t in times.items()}
+    print(f"[ab_xt] K4 (x [M,K]) vs K9 (xt [K,M]) at M={m}: ms per update {json.dumps(ab)}, "
+          f"runs {json.dumps(times)}; launches {counts}", flush=True)
+    if counts["fused_dw_adamw_xt"] <= 0:
+        raise AssertionError(f"the A/B never launched K9: {counts}")
+    return counts
 
 
 def _kernel_fns():
@@ -372,6 +656,9 @@ def _kernel_fns():
         "fused_output_dx": ops.fused_output_dx,
         "fused_output_dw": ops.fused_output_dw,
         "fused_dw_adamw": ops.fused_dw_adamw,
+        "fused_attention_backward": ops.fused_attention_backward,
+        "fused_attention2_backward": ops.fused_attention2_backward,
+        "fused_dw_adamw_xt": ops.fused_dw_adamw_xt,
     }
 
 
@@ -590,8 +877,48 @@ def _profile_step(state, ds, idx, mcfg, tcfg, name: str) -> None:
               flush=True)
 
 
+def _attention_step_checks(results, batch, base, fast) -> None:
+    """One step through the attention kernels against the plain step of
+    the same kind (fused, or hand-rolled without remat) on the trained
+    weights of that configuration and the same batch, dropout off, f32
+    moments so that mu/(1-b1) after one step is the gradient: the loss, and
+    the gradients of wq..bo relative to the largest of the eight."""
+    from ai_font_renderer_tpu_torch.config import TrainConfig, replace
+    from ai_font_renderer_tpu_torch.ops.fused_attention import KEYS
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+
+    off = dict(dropout_rate=0.0, fc_dropout_rate=0.0)
+    f32_mu = dict(adam_mu_bf16=False)
+    cases = {
+        # name: (frontend, kernel (model, train) configs, plain configs)
+        "attn_v1": ("f32", (replace(base, fused_attention=True, **off), TrainConfig(fused_dw_adamw=True, **f32_mu)),
+                    (replace(base, use_pallas_output=False, **off), TrainConfig(fused_dw_adamw=True, **f32_mu))),
+        "attn_v2_fast": ("bf16", (replace(fast, **off), TrainConfig(handrolled_bwd=True, remat_frontend="dots", **f32_mu)),
+                         (replace(fast, fused_attention_v2=False, **off), TrainConfig(handrolled_bwd=True, **f32_mu))),
+    }
+    one_minus_b1 = float(np.float32(1) - np.float32(0.9))
+    for name, (front, kern, plain) in cases.items():
+        out = []
+        for mcfg, tcfg in (kern, plain):
+            state = state_from_params(results[name].params, tcfg)
+            state, loss = train_step(state, *batch, 1e-3, torch.Generator(device="cuda"), mcfg, tcfg)
+            out.append((float(loss), {k: state.mu[k] / one_minus_b1 for k in KEYS}))
+            del state
+        (loss, grads), (ref_loss, ref_grads) = out
+        loss_rel = abs(loss - ref_loss) / ref_loss
+        scale = max(float(v.abs().max()) for v in ref_grads.values())
+        grad_rel = max(float((grads[k] - ref_grads[k]).abs().max()) for k in KEYS) / scale
+        loss_tol = STEP_LOSS_REL_TOL if front == "f32" else STEP_LOSS_BF16_TOL
+        grad_tol = STEP_ATTN_GRAD_TOL[front]
+        print(f"[train] one step, {name} vs plain ({front} frontend): loss {loss:.8f} vs {ref_loss:.8f} "
+              f"(rel {loss_rel:.3g}, tol {loss_tol}); gradient of wq..bo max err {grad_rel:.3g} of the "
+              f"largest (tol {grad_tol})", flush=True)
+        if not (loss_rel <= loss_tol and grad_rel <= grad_tol):
+            raise AssertionError(f"one step {name} vs plain: loss rel {loss_rel}, grad rel {grad_rel}")
+
+
 def phase_train(workdir: str, card: str) -> dict:
-    """Phase 5: the trainer at full width through ``train()``, in both
+    """Phase 5: the trainer at full width through ``train()``, in four
     kernel configurations, then the checks around it."""
     from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, ModelConfig, TrainConfig, replace
     from ai_font_renderer_tpu_torch.fontgen import bake_atlas, build_device_dataset, build_layouts
@@ -618,11 +945,17 @@ def phase_train(workdir: str, card: str) -> dict:
         raise AssertionError(f"synthesized sheets differ from the oracle by {int(diff.max())} levels")
 
     base = ModelConfig(use_pallas_output=True)
+    fast = ModelConfig(bf16_frontend=True, bits_dropout=True, fused_attention_v2=True)
+    run = dict(num_epochs=epochs, num_samples=n_samples, checkpoint_every=0)
     configs = {
-        "output": (base, TrainConfig(num_epochs=epochs, num_samples=n_samples, checkpoint_every=0)),
-        "fused": (base, TrainConfig(num_epochs=epochs, num_samples=n_samples, checkpoint_every=0,
-                                    fused_dw_adamw=True)),
+        "output": (base, TrainConfig(**run)),
+        "fused": (base, TrainConfig(**run, fused_dw_adamw=True)),
+        # Attention training through the kernels, dropout 0.2 in both.
+        "attn_v1": (replace(base, fused_attention=True), TrainConfig(**run, fused_dw_adamw=True)),
+        "attn_v2_fast": (fast, TrainConfig(**run, handrolled_bwd=True, remat_frontend="dots")),
     }
+    attention_kernels = {"attn_v1": ("fused_attention", "fused_attention_backward"),
+                         "attn_v2_fast": ("fused_attention2", "fused_attention2_backward")}
     counts = {k: 0 for k in _counts()}
     results = {}
     for name, (mcfg, tcfg) in configs.items():
@@ -640,6 +973,9 @@ def phase_train(workdir: str, card: str) -> dict:
               f"{[round(v, 6) for v in vals]}; launches {run_counts}", flush=True)
         if not (losses[-1] < losses[0] and all(np.isfinite(vals))):
             raise AssertionError(f"train {name}: the train loss did not fall or val is not finite")
+        for kernel in attention_kernels.get(name, ()):
+            if run_counts[kernel] <= 0:
+                raise AssertionError(f"train {name} never launched {kernel}: {run_counts}")
         results[name] = res
     for kernel in ("fused_output_dx", "fused_output_dw", "fused_dw_adamw"):
         if counts[kernel] <= 0:
@@ -670,6 +1006,7 @@ def phase_train(workdir: str, card: str) -> dict:
         if not (loss_rel <= STEP_LOSS_REL_TOL and dw_rel <= STEP_DW_REL_TOL):
             raise AssertionError(f"one step {name} vs plain: loss rel {loss_rel}, dW rel {dw_rel}")
     del step_checks, ref_dw
+    _attention_step_checks(results, batch, base, fast)
 
     path = os.path.join(workdir, "trained.npz")
     save_params(params, path, base)
@@ -680,7 +1017,7 @@ def phase_train(workdir: str, card: str) -> dict:
     batch_idx = torch.randint(0, n_samples, (8, 1024), generator=g, device="cuda")
     rates = {}
     for name, mcfg, tcfg in (("plain", replace(base, use_pallas_output=False), TrainConfig()),
-                             ("output", *configs["output"]), ("fused", *configs["fused"])):
+                             *((k, *v) for k, v in configs.items())):
         state = state_from_params(params, tcfg)
         rates[name] = _steps_per_s(state, ds, batch_idx, mcfg, tcfg)
         if name != "plain":
@@ -735,15 +1072,20 @@ def main() -> int:
     timed("build", phase_build)
     k1_rows = timed("check K1", check_fused_output)
     attn_rows = timed("check attention", check_fused_attention)
+    drop_rows = timed("check attention dropout", check_attention_dropout)
+    k6_rows, k8_rows = timed("check K6/K8", check_attention_backward)
     dx_rows, dw_rows = timed("check K2/K3", check_backward)
     k4_rows = timed("check K4", check_dw_adamw)
+    k9_rows = timed("check K9", check_dw_adamw_xt)
 
     with tempfile.TemporaryDirectory() as workdir:
         params, render_counts = timed("render", phase_render, workdir, card)
         serve_counts = timed("serve", phase_serve, params, workdir)
         del params
         train_counts = timed("train", phase_train, workdir, card)
+    ab_counts = timed("ab_xt", phase_ab_xt)
     launches = {k: render_counts[k] + serve_counts[k] + train_counts[k] for k in render_counts}
+    launches["fused_dw_adamw_xt"] = ab_counts["fused_dw_adamw_xt"]
 
     src = "ai_font_renderer_tpu_torch/csrc/"
     kernels = [
@@ -753,16 +1095,28 @@ def main() -> int:
             "M=1024,K=6400,N=19200", launches["fused_output"],
         ),
         _kernel_entry(
-            "fused_attention_fwd (v1 entry point)", src + "fused_attention.cu",
+            "fused_attention_fwd (v1 entry point, K5)", src + "fused_attention.cu",
             "ai_font_renderer_tpu/ops/fused_attention.py:65",
-            [r for r in attn_rows if r["shape"].endswith("float32")],
-            "B=1024,S=100,E=32,H=4,float32", launches["fused_attention"],
+            [r for r in attn_rows if r["shape"].endswith("float32")]
+            + [r for n, r in drop_rows if n.startswith("K5")],
+            f"B=1024,S=100,E=32,H=4,float32,dropout={DROPOUT}", launches["fused_attention"],
         ),
         _kernel_entry(
-            "fused_attention2_fwd (v2 entry point)", src + "fused_attention.cu",
+            "fused_attention2_fwd (v2 entry point, K7)", src + "fused_attention.cu",
             "ai_font_renderer_tpu/ops/fused_attention.py:374",
-            [r for r in attn_rows if r["shape"].endswith("bfloat16")],
-            "B=64,S=100,E=32,H=4,bfloat16", launches["fused_attention2"],
+            [r for r in attn_rows if r["shape"].endswith("bfloat16")]
+            + [r for n, r in drop_rows if n.startswith("K7")],
+            f"B=1024,S=100,E=32,H=4,bfloat16,dropout={DROPOUT}", launches["fused_attention2"],
+        ),
+        _kernel_entry(
+            "fused_attention_bwd (v1, mask regenerated, K6)", src + "fused_attention.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:122", k6_rows,
+            f"B=1024,S=100,E=32,H=4,float32,dropout={DROPOUT}", launches["fused_attention_backward"],
+        ),
+        _kernel_entry(
+            "fused_attention2_bwd (v2, mask read, K8)", src + "fused_attention.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:427", k8_rows,
+            f"B=1024,S=100,E=32,H=4,bfloat16,dropout={DROPOUT}", launches["fused_attention2_backward"],
         ),
         _kernel_entry(
             "fused_output_dx", src + "fused_output.cu",
@@ -778,6 +1132,11 @@ def main() -> int:
             "fused_dw_adamw", src + "fused_dw_adamw.cu",
             "ai_font_renderer_tpu/ops/fused_dw_adamw.py:55", k4_rows,
             "M=1024,K=6400,N=19200,mu=bf16", launches["fused_dw_adamw"],
+        ),
+        _kernel_entry(
+            "fused_dw_adamw_xt (K9)", src + "fused_dw_adamw.cu",
+            "tools/ab_kernel_micro.py:91", k9_rows,
+            "M=1024,K=6400,N=19200,mu=bf16,xt", launches["fused_dw_adamw_xt"],
         ),
     ]
     print(f"[phase] seconds by phase: {json.dumps(phase_times)}", flush=True)

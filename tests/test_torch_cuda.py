@@ -11,12 +11,18 @@ import numpy as np
 import pytest
 import torch
 
+from ai_font_renderer_tpu_torch.ops.philox import dropout_keep
 from ai_font_renderer_tpu_torch.ops import (
     fused_attention,
     fused_attention2,
+    fused_attention2_backward,
+    fused_attention_backward,
+    fused_attention_backward_reference,
     fused_attention_reference,
     fused_dw_adamw,
     fused_dw_adamw_reference,
+    fused_dw_adamw_xt,
+    fused_dw_adamw_xt_reference,
     fused_output,
     fused_output_dw,
     fused_output_dw_reference,
@@ -251,3 +257,155 @@ def test_train_step_with_kernels_matches_plain_step(cuda, fused):
     kern_mu = kern.mu_w if fused else kern.mu["out_w"]
     assert kern_mu.dtype == torch.bfloat16
     assert _rel_err(kern_mu.float(), plain.mu["out_w"].float()) <= 1e-2
+
+
+ATTN_SHAPES = [(3, 100, 32, 4), (5, 7, 16, 2), (2, 40, 32, 1)]
+
+
+def _seed(device, value=1234):
+    return torch.tensor([value], dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize(
+    "dtype,atol",
+    # As at rate 0: bf16 rounds where the TPU kernel does in the kernel and
+    # where the model's attention does in the plain version.
+    [(torch.float32, 1e-4), (torch.bfloat16, 0.05)],
+    ids=["f32", "bf16"],
+)
+@pytest.mark.parametrize("bsz,s,e,heads", ATTN_SHAPES)
+def test_attention_dropout_forward_matches_plain(cuda, dtype, atol, bsz, s, e, heads):
+    """K5 and K7 at rate 0.2 against the plain version fed the same seed:
+    the Philox mask is the same, so the values compare; K7's stored mask
+    equals the plain mask byte for byte, and v1 and v2 give the same bits."""
+    x, w = _attn_inputs(bsz, s, e, cuda, dtype)
+    seed = _seed(cuda)
+    before = (fused_attention.launches, fused_attention2.launches)
+    out1 = fused_attention(x, w, heads, 0.2, seed)
+    out2, mask = fused_attention2(x, w, heads, 0.2, seed, return_mask=True)
+    assert (fused_attention.launches, fused_attention2.launches) == (before[0] + 1, before[1] + 1)
+    want_mask = dropout_keep(seed, (bsz, heads, s, s), 0.2)
+    assert mask.dtype == torch.uint8 and torch.equal(mask, want_mask.to(torch.uint8))
+    assert torch.equal(out1, out2)
+    want = fused_attention_reference(x, w, heads, mask=want_mask, rate=0.2)
+    torch.testing.assert_close(out1.float(), want.float(), atol=atol, rtol=0)
+    assert not torch.equal(out1, fused_attention(x, w, heads, 0.2, _seed(cuda, 99)))
+
+
+# Backward kernels against the plain backward, relative to the largest
+# value: dx to its own, the weight gradients to the largest of the eight
+# (dbk is 0 in exact arithmetic). f32: sums in another order. bf16: dlogits,
+# dq, dk, dv and attn are rounded to bf16, and an f32 value that differs in
+# its last bits may round to the other bf16 neighbour (2^-8 relative).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _assert_grads_close(got, want, tol):
+    dx, dw = got
+    wdx, wdw = want
+    assert dx.dtype == wdx.dtype
+    assert _rel_err(dx.float(), wdx.float()) <= tol
+    scale = max(float(v.abs().max()) for v in wdw.values())
+    for k in KEYS:
+        assert dw[k].dtype == torch.float32
+        assert float((dw[k] - wdw[k]).abs().max()) <= tol * scale, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("bsz,s,e,heads", ATTN_SHAPES)
+def test_attention_backward_kernels_match_plain(cuda, dtype, rate, bsz, s, e, heads):
+    """K6 (mask regenerated) and K8 (mask read) against
+    fused_attention_backward_reference with the plain mask; both kernels
+    give the same bits, twice."""
+    x, w = _attn_inputs(bsz, s, e, cuda, dtype)
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda).to(dtype)
+    seed = _seed(cuda)
+    mask = dropout_keep(seed, (bsz, heads, s, s), rate).to(torch.uint8) if rate else None
+    before = (fused_attention_backward.launches, fused_attention2_backward.launches)
+    k6 = fused_attention_backward(x, g, w, heads, rate, seed)
+    k8 = fused_attention2_backward(x, g, w, heads, rate, mask)
+    assert (fused_attention_backward.launches, fused_attention2_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fused_attention_backward_reference(x, g, w, heads, rate, mask)
+    _assert_grads_close(k6, want, BWD_TOL[dtype])
+    again = fused_attention_backward(x, g, w, heads, rate, seed)
+    assert torch.equal(k6[0], k8[0]) and torch.equal(k6[0], again[0])
+    assert all(torch.equal(k6[1][k], k8[1][k]) and torch.equal(k6[1][k], again[1][k]) for k in KEYS)
+
+
+@pytest.mark.parametrize("stored", [False, True], ids=["v1", "v2"])
+def test_attention_autograd_launches_forward_and_backward(cuda, stored):
+    """Through autograd at rate 0.2 each entry point launches its forward
+    and its backward kernel once, and the gradients are the plain
+    backward's with the plain mask."""
+    x, w = _attn_inputs(4, 100, 32, cuda, torch.float32)
+    x = x.clone().requires_grad_()
+    w = {k: v.clone().requires_grad_() for k, v in w.items()}
+    seed = _seed(cuda)
+    fn, bwd = (fused_attention2, fused_attention2_backward) if stored else (fused_attention, fused_attention_backward)
+    before = (fn.launches, bwd.launches)
+    out = fn(x, w, 4, 0.2, seed)
+    out.square().sum().backward()
+    assert (fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    mask = dropout_keep(seed, (4, 4, 100, 100), 0.2)
+    want = fused_attention_backward_reference(
+        x.detach(), 2 * out.detach(), {k: v.detach() for k, v in w.items()}, 4, 0.2, mask)
+    _assert_grads_close((x.grad, {k: v.grad for k, v in w.items()}), want, BWD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["mu_f32", "mu_bf16"])
+@pytest.mark.parametrize("m,k,n", [(200, 640, 384), (37, 200, 301), (1024, 256, 256)])
+def test_fused_dw_adamw_xt_matches_plain(cuda, mu_dtype, m, k, n):
+    """K9 against its plain version at step 5, with K4's tolerances; and K9
+    equals K4 given x = xt^T, to the same tolerances (both sum the same bf16
+    products in f32, in another order)."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    xt = torch.relu(torch.randn(k, m, generator=gen, device=cuda)).to(torch.bfloat16)
+    gm = (torch.randn(m, n, generator=gen, device=cuda) * 1e-3).to(torch.bfloat16)
+    w, mu, nu = _adam_state(k, n, mu_dtype, cuda)
+    ref = [t.clone() for t in (w, mu, nu)]
+    k4 = [t.clone() for t in (w, mu, nu)]
+    before = fused_dw_adamw_xt.launches
+    got = fused_dw_adamw_xt(xt, gm, w, mu, nu, 1e-3, 5)
+    assert fused_dw_adamw_xt.launches == before + 1 and got[0] is w
+    fused_dw_adamw_xt_reference(xt, gm, *ref, 1e-3, 5)
+    fused_dw_adamw(xt.T.contiguous(), gm, *k4, 1e-3, 5e-4, 0.9, 0.99, 5)
+    for other in (ref, k4):
+        torch.testing.assert_close(w, other[0], atol=1e-6, rtol=0)
+        assert _rel_err(nu, other[2]) <= 1e-4
+        scale = float(other[1].float().abs().max())
+        rtol = 0.0 if mu_dtype == torch.float32 else 2**-7
+        torch.testing.assert_close(mu.float(), other[1].float(), rtol=rtol, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("stored", [False, True], ids=["v1", "v2"])
+def test_train_step_through_attention_kernels_matches_plain_step(cuda, stored):
+    """One step of a narrowed model on the card with dropout off, through
+    the attention kernels (forward and backward), against the plain step on
+    the same weights and batch: loss to 1e-5 relative; the attention
+    weights' first moment mu/(1-b1), the gradient at step 1 with f32
+    moments, to 1e-3 of the largest of the eight (f32 sums in another
+    order, through the clamp mask and fc1)."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig, replace
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+
+    plain_m = ModelConfig(max_length=24, hidden_dim=32, sheet_height=20, sheet_width=60,
+                          dropout_rate=0.0, fc_dropout_rate=0.0)
+    kern_m = replace(plain_m, **{"fused_attention_v2" if stored else "fused_attention": True})
+    params = font_renderer.init(torch.Generator().manual_seed(0), plain_m, "cpu")
+    params = {k: v.to(cuda) for k, v in params.items()}
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    codes = torch.randint(32, 127, (24, 24), generator=gen, device=cuda, dtype=torch.int32)
+    targets = torch.rand(24, 20, 60, generator=gen, device=cuda)
+    tcfg = TrainConfig(adam_mu_bf16=False)
+    bwd = fused_attention2_backward if stored else fused_attention_backward
+    before = bwd.launches
+    kern, kloss = train_step(state_from_params(params, tcfg), codes, targets, 1e-3, gen, kern_m, tcfg)
+    plain, ploss = train_step(state_from_params(params, tcfg), codes, targets, 1e-3, gen, plain_m, tcfg)
+    assert bwd.launches == before + 1
+    assert abs(float(kloss) - float(ploss)) <= 1e-5 * float(ploss)
+    scale = max(float(plain.mu[k].abs().max()) for k in KEYS)
+    for k in KEYS:
+        assert float((kern.mu[k] - plain.mu[k]).abs().max()) <= 1e-3 * scale, k

@@ -151,12 +151,6 @@ def test_constraint_and_not_ported_errors(jax_params):
     _, tc = _pair(bf16_cotangent=True, bf16_matmul=False)
     with pytest.raises(ValueError, match="bf16_cotangent"):
         tfr.apply(params, codes, tc)
-    # Training through the fused attention kernels waits for the attention
-    # training slice; the plain attention trains.
-    for flag in ("fused_attention", "fused_attention_v2"):
-        _, tc = _pair(**{flag: True})
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tfr.apply(params, codes, tc, train=True, generator=torch.Generator())
     for decoder in ("conv", "conv_ps"):
         _, tc = _pair(decoder=decoder)
         with pytest.raises(NotImplementedError, match="later slice"):

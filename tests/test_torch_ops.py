@@ -112,13 +112,6 @@ def test_attention_reference_matches_jax_attention_math():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
-@pytest.mark.parametrize("fn", [fused_attention, fused_attention2])
-def test_dropout_waits_for_training_slice(fn):
-    x, w = _attn_inputs(2, s=8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fn(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in w.items()}, 4, 0.2)
-
-
 def test_fused_output_gradients_match_jax_custom_vjp():
     """Gradients through FusedOutputFunction (plain versions on the CPU)
     against jax.grad of the Pallas fused_output in interpret mode (K1, K2,
@@ -226,18 +219,3 @@ def test_fused_dw_adamw_reference_refuses_step_0():
     fused_dw_adamw(*args, 1e-3, 0.0, 0.9, 0.99, 1)
     fused_dw_adamw_reference(*ref, 1e-3, 0.0, 0.9, 0.99, 1)
     assert all(a.equal(r) for a, r in zip(args[2:], ref[2:]))
-
-
-@pytest.mark.parametrize("fn", [fused_attention, fused_attention2])
-@pytest.mark.parametrize("which", ["x", "weight"])
-def test_attention_wrappers_raise_under_requires_grad(fn, which):
-    """The forward-only kernels give no gradient, so both entry points
-    refuse an input that requires one (and name the slice that brings the
-    backward), on the CPU as on the card; under no_grad they run."""
-    x, w = _attn_inputs(2, s=8)
-    tx = torch.from_numpy(x).requires_grad_(which == "x")
-    tw = {k: torch.from_numpy(v).requires_grad_(which == "weight" and k == "wq") for k, v in w.items()}
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        fn(tx, tw, 4)
-    with torch.no_grad():
-        assert fn(tx, tw, 4).shape == (2, 8, 32)
