@@ -1,0 +1,288 @@
+// A bf16 x bf16 -> f32 GEMM for sm_90a with both operands contiguous along
+// the contraction axis: C[M, K] = A[M, N] . B[K, N]^T ("TN", the K-major
+// no-transpose case of wgmma). It is K2's product (dX = gm16 . w16^T) and
+// the core that K1 and K3 are meant to share.
+//
+// Design (one output tile of 128 x 200 per block, not persistent):
+//   * TMA 2-D tiled loads with the 128-byte swizzle fill a ring of five
+//     stages in dynamic shared memory; a stage is one 128 x 64 tile of A and
+//     one 200 x 64 tile of B (64 bf16 = one 128-byte swizzle row). Each stage
+//     has a "full" mbarrier (the producer's expect_tx, completed by the TMA
+//     bytes) and an "empty" one (one arrival per consumer warp).
+//   * Warpgroup 0 is the producer: it gives registers back (setmaxnreg.dec)
+//     and one thread issues the loads. Warpgroups 1 and 2 are consumers
+//     (setmaxnreg.inc), each owning 64 rows of the tile: wgmma m64n200k16,
+//     both operands from shared-memory descriptors, four k16 steps a
+//     stage, then commit; wait_group 1 keeps one group in flight and frees
+//     the stage of the group that has just completed.
+//   * The f32 accumulators go straight from registers to C, masked at the M
+//     and K edges. TMA's zero fill covers ragged rows and the N tail.
+//
+// Shared-memory descriptor for a K-major operand with the 128-byte swizzle:
+// start address >> 4 in bits 0-13, leading byte offset unused (1), stride
+// byte offset 1024 >> 4 (8 rows of 128 bytes) in bits 32-45, layout 1
+// (SWIZZLE_128B) in bits 62-63. A k16 step advances the start by 32 bytes
+// inside the swizzled row; every stage buffer is 1024-byte aligned.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace sm90 {
+
+constexpr int BK = 64;  // contraction depth of a stage: one 128-byte row
+constexpr int TILE_BYTES_PER_ROW = BK * 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed. A wait that lasts
+// about eight seconds traps, so that an accounting fault ends the kernel
+// with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d += A(64 x 16, desc a) . B(200 x 16, desc b)^T (scale-d 1, no transposes:
+// both operands K-major); d holds 100 floats a thread.
+__device__ __forceinline__ void wgmma_m64n200k16(float (&d)[100], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n200k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99"
+      "}, %100, %101, 1, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
+      : "l"(a), "l"(b));
+}
+
+constexpr int GEMM_BM = 128;       // two consumer warpgroups of 64 rows
+constexpr int GEMM_THREADS = 384;  // producer warpgroup + two consumers
+constexpr int GEMM_A_BYTES = GEMM_BM * TILE_BYTES_PER_ROW;  // 16 KB
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+// Registers a thread must hold at launch so that the producer's release
+// covers the consumers' request: 128 * 40 + 256 * 232 <= 384 * 168.
+constexpr int LAUNCH_REGS = 168;
+
+// The tile is 128 rows by GEMM_BN = 200 columns of C. At the batch of 1024
+// rows and K = 6400 that is 8 x 32 = 256 blocks, two full waves on 132 SMs.
+// A stage is A's 16 KB and B's 25 KB (each a multiple of 1024 bytes, so
+// every buffer stays aligned for the swizzle); five stages fill 205 KB.
+constexpr int GEMM_BN = 200;
+constexpr int GEMM_B_BYTES = GEMM_BN * TILE_BYTES_PER_ROW;
+constexpr int GEMM_STAGE_BYTES = GEMM_A_BYTES + GEMM_B_BYTES;
+constexpr int GEMM_STAGES = 5;
+// The ring, its barriers, and 1024 bytes to align the ring by hand (the
+// dynamic shared-memory base is only 16-byte aligned).
+constexpr int GEMM_SMEM = GEMM_STAGES * GEMM_STAGE_BYTES + 2 * GEMM_STAGES * 8 + 1024;
+static_assert(GEMM_SMEM <= 227 * 1024, "the ring must fit an SM's shared memory");
+
+// C[M, K] (row stride ldc floats) = A[M, N] . B[K, N]^T; the maps give A and
+// B as bf16 with boxes of 64 columns by GEMM_BM and GEMM_BN rows, 128-byte
+// swizzle.
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+gemm_bf16_tn_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b, float* __restrict__ c, int M,
+                    int K, int N, int ldc) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GEMM_STAGES * GEMM_STAGE_BYTES);
+  uint64_t* empty = full + GEMM_STAGES;
+
+  const int m0 = blockIdx.x * GEMM_BM;
+  const int k0 = blockIdx.y * GEMM_BN;
+  const int n_tiles = (N + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % GEMM_STAGES;
+        const uint32_t round = i / GEMM_STAGES;
+        mbar_wait(&empty[s], (round & 1) ^ 1);  // round 0 passes at once
+        unsigned char* a = smem + s * GEMM_STAGE_BYTES;
+        mbar_expect_tx(&full[s], GEMM_STAGE_BYTES);  // full boxes, even out of bounds
+        tma_load_2d(a, &map_a, &full[s], i * BK, m0);
+        tma_load_2d(a + GEMM_A_BYTES, &map_b, &full[s], i * BK, k0);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    float d[GEMM_BN / 2];
+#pragma unroll
+    for (int j = 0; j < GEMM_BN / 2; ++j) d[j] = 0.f;
+    const int row_off = (wg - 1) * 64 * TILE_BYTES_PER_ROW;  // this warpgroup's 64 rows of A
+    const int lane = threadIdx.x % 32;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % GEMM_STAGES;
+      mbar_wait(&full[s], (i / GEMM_STAGES) & 1);
+      const unsigned char* a = smem + s * GEMM_STAGE_BYTES;
+      const uint64_t da = sw128_desc(a + row_off);
+      const uint64_t db = sw128_desc(a + GEMM_A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n200k16(d, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // the group of stage i-1 is done: free that stage
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % GEMM_STAGES]);
+    }
+    wgmma_wait<0>();
+
+    // Accumulator layout of m64nNk16: register 4j + 2h + c of thread t holds
+    // row 16*(t/32) + (t%32)/4 + 8h, column 8j + 2*(t%4) + c.
+    const int warp = (threadIdx.x % 128) / 32;
+    const int row0 = m0 + (wg - 1) * 64 + warp * 16 + lane / 4;
+    const int col0 = k0 + 2 * (lane % 4);
+    const bool pairs = (ldc % 2) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      if (r >= M) continue;
+      float* crow = c + (size_t)r * ldc;
+#pragma unroll
+      for (int j = 0; j < GEMM_BN / 8; ++j) {
+        const int col = col0 + 8 * j;
+        const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if (pairs && col + 1 < K) {
+          *reinterpret_cast<float2*>(crow + col) = make_float2(v0, v1);
+        } else {
+          if (col < K) crow[col] = v0;
+          if (col + 1 < K) crow[col + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A map over the bf16 matrix [rows, cols] with row stride ld elements
+// (ld * 2 bytes a multiple of 16), boxes of 64 columns by box_rows rows,
+// 128-byte swizzle, zero fill out of bounds. Returns 0 or the CUresult.
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int ld,
+                           int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+}  // namespace sm90

@@ -17,6 +17,7 @@ from .fused_dw_adamw import (
 )
 from .fused_output import (
     FusedOutputFunction,
+    dx_operands_reference,
     fused_output,
     fused_output_dw,
     fused_output_dw_reference,
@@ -24,10 +25,15 @@ from .fused_output import (
     fused_output_dx_reference,
     fused_output_fwd,
     fused_output_reference,
+    gemm_bf16_tn,
+    gemm_bf16_tn_reference,
+    round_bf16,
+    round_bf16_reference,
 )
 
 __all__ = [
     "FusedOutputFunction",
+    "dx_operands_reference",
     "fused_attention",
     "fused_attention2",
     "fused_attention2_backward",
@@ -45,4 +51,8 @@ __all__ = [
     "fused_output_dx_reference",
     "fused_output_fwd",
     "fused_output_reference",
+    "gemm_bf16_tn",
+    "gemm_bf16_tn_reference",
+    "round_bf16",
+    "round_bf16_reference",
 ]

@@ -8,7 +8,10 @@ CPU. The kernels replace the TPU kernels of ai_font_renderer_tpu/ops/
 fused_output.py:
 
 * ``fused_output_fwd`` -- K1, ``_fwd_kernel``: clamp(bf16(x) @ bf16(w) + b);
-* ``fused_output_dx`` -- K2, ``_dx_kernel``: bf16(g * mask) @ bf16(w)^T;
+* ``fused_output_dx`` -- K2, ``_dx_kernel``: bf16(g * mask) @ bf16(w)^T, in
+  two kernels: ``round_bf16``, the operand pass that masks and rounds g and
+  rounds w to bf16 rows padded to a multiple of 8, then ``gemm_bf16_tn``,
+  the TMA + wgmma product of csrc/sm90_gemm.cuh;
 * ``fused_output_dw`` -- K3, ``_dw_kernel``: bf16(x)^T @ bf16(g * mask);
 
 with mask = 0 < out < 1: the clamp passes a gradient only strictly inside
@@ -19,7 +22,9 @@ path, which runs its kernels only when M, K and N are multiples of 128 and
 otherwise falls back to plain ops, the CUDA kernels mask the ragged edge.
 
 Launch counts: K1's on ``fused_output.launches``, K2's and K3's on
-``fused_output_dx.launches`` and ``fused_output_dw.launches``.
+``fused_output_dx.launches`` (one a call) and ``fused_output_dw.launches``;
+K2's two kernels on ``round_bf16.launches`` (two a K2 call) and
+``gemm_bf16_tn.launches``.
 """
 
 from __future__ import annotations
@@ -34,8 +39,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = ([_PTR] * 4 + [_INT] * 3 + [_PTR], ctypes.c_int)
 _SIGNATURES = {
     "afr_fused_output_fwd": _SIGNATURE,
-    "afr_fused_output_dx": _SIGNATURE,
     "afr_fused_output_dw": _SIGNATURE,
+    "afr_round_bf16": ([_PTR] * 3 + [_INT] * 3 + [_PTR], ctypes.c_int),
+    "afr_gemm_bf16_tn": ([_PTR] * 3 + [_INT] * 4 + [_PTR], ctypes.c_int),
+    "afr_gemm_bf16_tn_attrs": ([_PTR], ctypes.c_int),
 }
 
 
@@ -62,6 +69,35 @@ def fused_output_dx_reference(g: torch.Tensor, out: torch.Tensor, w: torch.Tenso
     return _bf16(torch.where(clamp_mask(out), g, 0.0)) @ _bf16(w).T
 
 
+def padded_width(n: int) -> int:
+    """n rounded up to a multiple of 8: TMA takes rows whose stride is a
+    multiple of 16 bytes."""
+    return -(-n // 8) * 8
+
+
+def round_bf16_reference(src: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The operand pass's plain version: bf16 (nearest even) of src where
+    0 < out < 1 and 0 elsewhere (no mask when out is None), zero-padded to
+    padded_width(cols) columns."""
+    v = src if out is None else torch.where(clamp_mask(out), src, 0.0)
+    rows, cols = v.shape
+    dst = torch.zeros((rows, padded_width(cols)), dtype=torch.bfloat16, device=v.device)
+    dst[:, :cols] = v.to(torch.bfloat16)
+    return dst
+
+
+def dx_operands_reference(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> tuple:
+    """K2's two bf16 operands as its operand pass makes them: gm16 [M, Np]
+    and w16 [K, Np]."""
+    return round_bf16_reference(g, out), round_bf16_reference(w)
+
+
+def gemm_bf16_tn_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The GEMM's plain version: a [M, L] @ b [K, L]^T of bf16 values, in
+    f32 (each product is exact in f32)."""
+    return a.float() @ b.float().T
+
+
 def fused_output_dw_reference(x: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """K3's plain version: bf16(x)^T @ bf16(g * mask) in f32."""
     return _bf16(x).T @ _bf16(torch.where(clamp_mask(out), g, 0.0))
@@ -82,9 +118,12 @@ def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
 
 
 def _launch(entry, fn_name: str, args: tuple, dims: tuple, dev: torch.device) -> None:
+    """Launch ``fn_name`` on the tensors ``args`` (None passes a null
+    pointer) and count it on ``entry``; raise on a non-zero return."""
     with torch.cuda.device(dev):
         lib = _build.load("fused_output", _SIGNATURES)
-        rc = getattr(lib, fn_name)(*(t.data_ptr() for t in args), *dims, _build.stream_handle(dev))
+        ptrs = (None if t is None else t.data_ptr() for t in args)
+        rc = getattr(lib, fn_name)(*ptrs, *dims, _build.stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
     entry.launches += 1
@@ -112,9 +151,65 @@ def fused_output_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
     return out
 
 
+def round_bf16(src: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K2's operand pass: bf16 (nearest even) of src where 0 < out < 1 and 0
+    elsewhere (no mask when out is None), src and out [rows, cols] float32
+    -> [rows, padded_width(cols)] bfloat16, pad columns zero. Counts on
+    ``round_bf16.launches``."""
+    if src.device.type == "cpu":
+        return round_bf16_reference(src, out)
+    _require_cuda("round_bf16", src)
+    if src.dim() != 2:
+        raise ValueError(f"round_bf16: expected src [rows, cols], got {tuple(src.shape)}")
+    rows, cols = src.shape
+    tensors = {"src": src} if out is None else {"src": src, "out": out}
+    dev = _check("round_bf16", tensors, {"src": (rows, cols), "out": (rows, cols)})
+    dst = torch.empty((rows, padded_width(cols)), dtype=torch.bfloat16, device=dev)
+    if rows and cols:
+        _launch(round_bf16, "afr_round_bf16", (src, out, dst), (rows, cols, dst.shape[1]), dev)
+    return dst
+
+
+def gemm_bf16_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K2's product: a [M, L] @ b [K, L]^T in f32, a and b contiguous
+    bfloat16 with L a multiple of 8 (as ``round_bf16`` pads them), in tiles
+    of 128 rows by 200 columns. Counts on ``gemm_bf16_tn.launches``."""
+    if a.device.type == "cpu":
+        return gemm_bf16_tn_reference(a, b)
+    _require_cuda("gemm_bf16_tn", a)
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or not t.is_contiguous() or t.device != a.device:
+            raise ValueError(f"gemm_bf16_tn: {name} must be a contiguous 2-D bfloat16 tensor on {a.device}")
+    (m, width), k = a.shape, b.shape[0]
+    if b.shape[1] != width or width % 8:
+        raise ValueError(f"gemm_bf16_tn: a [M, L] and b [K, L] need one width L, a multiple of 8; "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if not width:
+        return torch.zeros((m, k), dtype=torch.float32, device=a.device)
+    c = torch.empty((m, k), dtype=torch.float32, device=a.device)
+    if m and k:
+        _launch(gemm_bf16_tn, "afr_gemm_bf16_tn", (a, b, c), (m, k, width, width), a.device)
+    return c
+
+
+def gemm_bf16_tn_attributes(device="cuda") -> dict:
+    """The GEMM kernel as built for the card: registers a thread, static and
+    dynamic shared memory a block (bytes), threads a block, ring stages,
+    and the tile (bm x bn)."""
+    attrs = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        rc = _build.load("fused_output", _SIGNATURES).afr_gemm_bf16_tn_attrs(attrs)
+    if rc != 0:
+        raise RuntimeError(f"afr_gemm_bf16_tn_attrs failed: CUDA error {rc}")
+    keys = ("registers", "static_smem", "dynamic_smem", "threads", "stages", "bm", "bn")
+    return dict(zip(keys, attrs))
+
+
 def fused_output_dx(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K2: dX = bf16(g * mask(out)) @ bf16(w)^T in f32. g, out [M, N],
-    w [K, N] -> [M, K]. ``fused_output_dx.launches`` counts launches."""
+    w [K, N] -> [M, K]. On the card: the operand pass twice (gm16 [M, Np],
+    w16 [K, Np]) and the GEMM once. ``fused_output_dx.launches`` counts K2
+    calls."""
     if g.device.type == "cpu":
         return fused_output_dx_reference(g, out, w)
     _require_cuda("fused_output_dx", g)
@@ -123,9 +218,10 @@ def fused_output_dx(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> torc
     m, n = g.shape
     k = w.shape[0]
     dev = _check("fused_output_dx", {"g": g, "out": out, "w": w}, {"g": (m, n), "out": (m, n), "w": (k, n)})
-    dx = torch.empty((m, k), dtype=torch.float32, device=dev)
-    if m:
-        _launch(fused_output_dx, "afr_fused_output_dx", (g, out, w, dx), (m, k, n), dev)
+    if not m:
+        return torch.empty((0, k), dtype=torch.float32, device=dev)
+    dx = gemm_bf16_tn(round_bf16(g, out), round_bf16(w))
+    fused_output_dx.launches += 1
     return dx
 
 
@@ -178,4 +274,6 @@ def fused_output(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 fused_output.launches = 0
 fused_output_dx.launches = 0
+round_bf16.launches = 0
+gemm_bf16_tn.launches = 0
 fused_output_dw.launches = 0

@@ -7,7 +7,8 @@ Phases, each of which raises on failure, each with its seconds:
 
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
    the port from csrc/ (one nvcc per source, all at once), with the build
-   time.
+   time, ptxas's registers and shared memory for each kernel, and the K2
+   GEMM's launch shape and dynamic shared memory.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it: max abs error against the stated tolerance,
    and times from CUDA events for the kernel, the plain version, one
@@ -15,7 +16,9 @@ Phases, each of which raises on failure, each with its seconds:
    never calls), and the least time the card could take (bytes over
    3.35 TB/s or operations over the peak rate of their type). K1 and the
    attention forward at the serving shapes; K2, K3 and K4 at M = 200 and
-   1024 rows of the 6400 x 19200 projection; the attention forward with
+   1024 rows of the 6400 x 19200 projection, with K2's two kernels (the
+   bf16 operand pass, bit for bit, and the TMA + wgmma GEMM) checked and
+   timed alone; the attention forward with
    dropout 0.2 (K5 in f32, K7 in bf16 and f32), K7's stored mask byte for
    byte against the plain Philox mask, and the backward kernels K6 and K8
    at batch 1024 in f32 and bf16; K9 (K4 on a transposed x) at M = 1024,
@@ -42,7 +45,8 @@ Phases, each of which raises on failure, each with its seconds:
    configuration, the trained weights through the npz file and rendered
    against the plain path, steps/s of each configuration, and a profile of
    one step.
-6. One JSON line listing every kernel (K1-K9) with its launches on the
+6. One JSON line listing every kernel (K1-K9, and K2's operand pass and
+   GEMM) with its launches on the
    main paths (phases 3, 4 and 5 and the K4/K9 A/B; counts are set to 0
    just before each drive and read just after), its error and its times.
 
@@ -157,13 +161,19 @@ def _attn_peak(dt) -> float:
 
 def phase_build() -> float:
     from ai_font_renderer_tpu_torch.ops import _build
+    from ai_font_renderer_tpu_torch.ops.fused_output import gemm_bf16_tn_attributes
 
     t0 = time.perf_counter()
     reports = _build.build()
     seconds = time.perf_counter() - t0
+    # ptxas -v: each entry function (mangled) and its registers, shared
+    # memory, stack and spills.
     for name, log in reports.items():
-        regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
-        print(f"[build] {name}.cu: " + " | ".join(regs), flush=True)
+        for line in log.splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                print(f"[build] {name}.cu {line.strip()}", flush=True)
+    # The GEMM's shared memory is dynamic, which ptxas does not report.
+    print(f"[build] K2 GEMM as loaded: {json.dumps(gemm_bf16_tn_attributes())}", flush=True)
     print(f"[build] kernels built in {seconds:.2f} s", flush=True)
     return seconds
 
@@ -213,9 +223,87 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], list[dict]]:
+def _k2_parts(cot, out, w, m, k, n, round_rows, gemm_rows) -> dict:
+    """K2's two kernels on K2's inputs: the operand pass (g masked, and W)
+    bit for bit against its plain version, the GEMM on those operands
+    against its plain version; their rows for the kernels line (the W pass
+    once, at the first M), and K2's own extra fields: prep_ms (both
+    passes), gemm_ms, gemm_tflops, and library_with_casts_ms (the mask, the
+    two casts and torch.mm: the same two-pass work in PyTorch)."""
+    from ai_font_renderer_tpu_torch.ops.fused_output import (
+        clamp_mask,
+        gemm_bf16_tn,
+        gemm_bf16_tn_reference,
+        padded_width,
+        round_bf16,
+        round_bf16_reference,
+    )
+
+    npad = padded_width(n)
+    gm16, w16 = round_bf16(cot, out), round_bf16(w)
+    passes = [(f"gm M={m},N={n}", (cot, out), gm16, None)]
+    if not round_rows:
+        passes.append((f"w K={k},N={n}", (w,), w16, lambda: w.to(torch.bfloat16)))
+    for shape, args, got, library in passes:
+        want = round_bf16_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"K2 operand pass {shape}: differs from its plain version")
+        rows = args[0].shape[0]
+        bound_ms, bound_by = _bound(4 * rows * n * len(args) + 2 * rows * npad, 0, BF16_TENSOR_FLOPS)
+        row = {
+            "shape": shape,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "tol": "bit for bit",
+            "ms": time_ms(lambda: round_bf16(*args), 10),
+            "plain_ms": time_ms(lambda: round_bf16_reference(*args), 5),
+            # The W pass is one cast (N is a multiple of 8: no pad); the
+            # masked pass has no single PyTorch call.
+            "library_ms": time_ms(library, 10) if library else None,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        print(f"[K2 round_bf16] {json.dumps(row)}", flush=True)
+        round_rows.append(row)
+        del want
+
+    got, want = gemm_bf16_tn(gm16, w16), gemm_bf16_tn_reference(gm16, w16)
+    torch.cuda.synchronize()
+    rel = _rel(got, want)
+    if not rel <= GRAD_REL_TOL:
+        raise AssertionError(f"K2 GEMM M={m}: max err {rel} of the largest value > {GRAD_REL_TOL}")
+    gemm_ms = time_ms(lambda: gemm_bf16_tn(gm16, w16), 20)
+    bound_ms, bound_by = _bound(2 * (m + k) * npad + 4 * m * k, 2 * m * k * npad, BF16_TENSOR_FLOPS)
+    row = {
+        "shape": f"M={m},K={k},N={n}",
+        "max_abs_err": float((got - want).abs().max()),
+        "rel_err": rel,
+        "tol": f"{GRAD_REL_TOL} of max |plain|",
+        "ms": gemm_ms,
+        "plain_ms": time_ms(lambda: gemm_bf16_tn_reference(gm16, w16), 3),
+        # cuBLAS on the same bf16 operands, f32 out: the same function.
+        "library_ms": time_ms(lambda: torch.mm(gm16, w16.t(), out_dtype=torch.float32), 20),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "tflops": 2 * m * k * n / gemm_ms / 1e9,
+    }
+    print(f"[K2 gemm_bf16_tn] {json.dumps(row)}", flush=True)
+    gemm_rows.append(row)
+    del got, want
+    return {
+        "prep_ms": time_ms(lambda: (round_bf16(cot, out), round_bf16(w)), 10),
+        "gemm_ms": gemm_ms,
+        "gemm_tflops": row["tflops"],
+        "library_with_casts_ms": time_ms(lambda: torch.mm(
+            torch.where(clamp_mask(out), cot, 0.0).to(torch.bfloat16), w.to(torch.bfloat16).t(),
+            out_dtype=torch.float32), 10),
+    }
+
+
+def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], ...]:
     """K2 (dX) and K3 (dW) vs their plain versions at the training path's
-    row counts (the batch of 1024, and a ragged 200)."""
+    row counts (the batch of 1024, and a ragged 200), and K2's two kernels
+    (operand pass, GEMM) alone on K2's inputs."""
     from ai_font_renderer_tpu_torch.ops.fused_output import (
         fused_output_dw,
         fused_output_dw_reference,
@@ -229,7 +317,7 @@ def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], li
     w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) * bound
     b = (torch.rand(n, generator=g, device="cuda") * 2 - 1) * bound
     w16 = w.to(torch.bfloat16)
-    dx_rows, dw_rows = [], []
+    dx_rows, dw_rows, round_rows, gemm_rows = [], [], [], []
     for m in ms_list:
         x = torch.relu(torch.randn(m, k, generator=g, device="cuda"))
         out = fused_output_reference(x, w, b)
@@ -261,10 +349,12 @@ def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], li
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
             }
+            del got, want
+            if rows is dx_rows:
+                row.update(_k2_parts(cot, out, w, m, k, n, round_rows, gemm_rows))
             print(f"[{name}] {json.dumps(row)}", flush=True)
             rows.append(row)
-            del got, want
-    return dx_rows, dw_rows
+    return dx_rows, dw_rows, round_rows, gemm_rows
 
 
 def check_dw_adamw(ms_list=(200, 1024), k=6400, n=19200) -> list[dict]:
@@ -654,6 +744,8 @@ def _kernel_fns():
         "fused_attention": ops.fused_attention,
         "fused_attention2": ops.fused_attention2,
         "fused_output_dx": ops.fused_output_dx,
+        "round_bf16": ops.round_bf16,
+        "gemm_bf16_tn": ops.gemm_bf16_tn,
         "fused_output_dw": ops.fused_output_dw,
         "fused_dw_adamw": ops.fused_dw_adamw,
         "fused_attention_backward": ops.fused_attention_backward,
@@ -977,7 +1069,7 @@ def phase_train(workdir: str, card: str) -> dict:
             if run_counts[kernel] <= 0:
                 raise AssertionError(f"train {name} never launched {kernel}: {run_counts}")
         results[name] = res
-    for kernel in ("fused_output_dx", "fused_output_dw", "fused_dw_adamw"):
+    for kernel in ("fused_output_dx", "round_bf16", "gemm_bf16_tn", "fused_output_dw", "fused_dw_adamw"):
         if counts[kernel] <= 0:
             raise AssertionError(f"training never launched {kernel}: {counts}")
 
@@ -1074,7 +1166,7 @@ def main() -> int:
     attn_rows = timed("check attention", check_fused_attention)
     drop_rows = timed("check attention dropout", check_attention_dropout)
     k6_rows, k8_rows = timed("check K6/K8", check_attention_backward)
-    dx_rows, dw_rows = timed("check K2/K3", check_backward)
+    dx_rows, dw_rows, round_rows, gemm_rows = timed("check K2/K3", check_backward)
     k4_rows = timed("check K4", check_dw_adamw)
     k9_rows = timed("check K9", check_dw_adamw_xt)
 
@@ -1122,6 +1214,16 @@ def main() -> int:
             "fused_output_dx", src + "fused_output.cu",
             "ai_font_renderer_tpu/ops/fused_output.py:96", dx_rows,
             "M=1024,K=6400,N=19200", launches["fused_output_dx"],
+        ),
+        _kernel_entry(
+            "round_bf16 (K2 operand pass)", src + "fused_output.cu",
+            "ai_font_renderer_tpu/ops/fused_output.py:96", round_rows,
+            "w K=6400,N=19200", launches["round_bf16"],
+        ),
+        _kernel_entry(
+            "gemm_bf16_tn (K2 GEMM)", src + "sm90_gemm.cuh",
+            "ai_font_renderer_tpu/ops/fused_output.py:96", gemm_rows,
+            "M=1024,K=6400,N=19200", launches["gemm_bf16_tn"],
         ),
         _kernel_entry(
             "fused_output_dw", src + "fused_output.cu",

@@ -29,6 +29,10 @@ from ai_font_renderer_tpu_torch.ops import (
     fused_output_dx,
     fused_output_dx_reference,
     fused_output_reference,
+    gemm_bf16_tn,
+    gemm_bf16_tn_reference,
+    round_bf16,
+    round_bf16_reference,
 )
 
 KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
@@ -137,6 +141,77 @@ def test_backward_kernels_match_plain(cuda, m, k, n):
     assert (fused_output_dx.launches, fused_output_dw.launches) == (before[0] + 1, before[1] + 1)
     assert _rel_err(dx, fused_output_dx_reference(g, out, w)) <= 1e-4
     assert _rel_err(dw, fused_output_dw_reference(x, g, out)) <= 1e-4
+
+
+# The four ragged shapes above, then K2 at the model's depth and width with
+# the ragged 200 rows and the batch of 1024.
+K2_SHAPES = [(200, 256, 384), (130, 200, 301), (64, 6400, 512), (33, 202, 640),
+             (200, 6400, 19200), (1024, 6400, 19200)]
+
+
+def _k2_counts():
+    return fused_output_dx.launches, round_bf16.launches, gemm_bf16_tn.launches
+
+
+@pytest.mark.parametrize("m,k,n", K2_SHAPES)
+def test_k2_two_pass_matches_plain(cuda, m, k, n):
+    """K2 on the card is one operand pass for g, one for w and one GEMM;
+    within 1e-4 of the plain version's largest value (f32 sums of exact
+    bf16 products, in another order)."""
+    x, w, out, g = _backward_inputs(m, k, n, cuda)
+    before = _k2_counts()
+    dx = fused_output_dx(g, out, w)
+    assert _k2_counts() == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert dx.shape == (m, k) and dx.dtype == torch.float32
+    assert _rel_err(dx, fused_output_dx_reference(g, out, w)) <= 1e-4
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["w", "g_masked"])
+@pytest.mark.parametrize("rows,cols", [(130, 301), (64, 384), (3, 5), (1024, 19200)])
+def test_round_bf16_matches_plain_bit_for_bit(cuda, masked, rows, cols):
+    """The operand pass equals its plain version bit for bit, pad columns
+    included; outputs exactly at 0 and 1 stop the cotangent."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + cols)
+    src = torch.randn(rows, cols, generator=gen, device=cuda)
+    out = None
+    if masked:
+        out = torch.rand(rows, cols, generator=gen, device=cuda) * 1.5 - 0.25
+        out[:, ::7] = 0.0
+        out[:, 3::7] = 1.0
+    before = round_bf16.launches
+    got = round_bf16(src, out)
+    assert round_bf16.launches == before + 1
+    want = round_bf16_reference(src, out)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (rows, -(-cols // 8) * 8)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("m,k,width", [(200, 256, 384), (130, 202, 304), (64, 6400, 512),
+                                       (33, 202, 640), (1024, 6400, 19200), (513, 400, 136),
+                                       (1, 8, 8)])
+def test_gemm_bf16_tn_matches_f32_product(cuda, m, k, width):
+    """The GEMM alone on bf16 operands against the f32 product of the same
+    values, to 1e-4 of its largest value (exact products, f32 sums in
+    another order)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    a = torch.randn(m, width, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(k, width, generator=gen, device=cuda).to(torch.bfloat16)
+    before = gemm_bf16_tn.launches
+    got = gemm_bf16_tn(a, b)
+    assert gemm_bf16_tn.launches == before + 1
+    assert _rel_err(got, gemm_bf16_tn_reference(a, b)) <= 1e-4
+
+
+def test_k2_wrappers_refuse_what_they_cannot_take(cuda):
+    a = torch.zeros(4, 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gemm_bf16_tn(a, a)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gemm_bf16_tn(a.float(), a.float())
+    with pytest.raises(ValueError, match="one width"):
+        gemm_bf16_tn(a[:, :8].contiguous(), torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="float32"):
+        round_bf16(a)
 
 
 def test_autograd_function_launches_the_backward_kernels(cuda):
