@@ -50,16 +50,26 @@
 // done once in its own pass, it leaves the GEMM a pure bf16 product.
 //
 // K3, dW = bf16(X)^T @ bf16(g * mask): replaces _dw_kernel. X [M, K],
-// g and out [M, N] f32 -> dW [K, N] f32. The contraction axis M is the
-// strided axis of both operands: X's tile is stored [M][K-cols] in shared
-// memory, the column-major A operand, and the mask is rebuilt from out for
-// every K tile. Each (K, N) tile of dW is written once. Same bound as K2:
-// 0.254 ms of operations against 0.201 ms of bytes. Blocks walk K fastest,
-// so the blocks sharing a column strip of g and out run together.
+// g and out [M, N] f32 -> dW [K, N] f32, contracting over the batch M, the
+// strided axis of both operands. At M = 1024: 251.7 GFLOP, 0.2545 ms at
+// 989 TFLOP/s, against 0.147 ms to write the 491.5 MB dW and 0.016 ms for
+// the bf16 operands: compute-bound, with an output write that must overlap
+// the products to stay hidden.
 //
-// K3 reuses K1's shape (64 x 128 tiles, 8 warps, 32-deep steps with a
-// register prefetch). Its epilogue tile aliases the operand tiles in shared
-// memory, which the main loop no longer needs by then.
+// The first design was a WMMA kernel with 64 x 128 tiles of dW (15,000
+// blocks at K = 6400, N = 19200) that streamed f32 strips of X, g and out
+// through registers and rebuilt the mask for every tile: 19.7 GB from L2
+// into the SMs a call at M = 1024, 2.91 ms, the tensor cores under 9% of
+// peak. The redesign is K2's split:
+//   * afr_round_bf16 for x16 [M, Kp] = bf16_rn(X), and gm16, the masked
+//     cotangent K2 reads too (the autograd backward forms it once for
+//     both);
+//   * afr_gemm_bf16_mn, dW = x16^T . gm16, the TMA + wgmma GEMM of
+//     sm90_gemm.cuh with both operands MN-major: 128 x 256 tiles, 3,750 at
+//     the model's widths, walked by a persistent grid of one block an SM;
+//     the next tile's loads are in flight while a tile is stored, and the
+//     stores go out through shared memory and TMA while the next tile
+//     multiplies. L2 traffic falls to about 2.9 GB a call.
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -195,38 +205,11 @@ fused_output_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w
   }
 }
 
-__device__ __forceinline__ float4 mask4(float4 g, float4 o) {
-  g.x = (o.x > 0.f && o.x < 1.f) ? g.x : 0.f;
-  g.y = (o.y > 0.f && o.y < 1.f) ? g.y : 0.f;
-  g.z = (o.z > 0.f && o.z < 1.f) ? g.z : 0.f;
-  g.w = (o.w > 0.f && o.w < 1.f) ? g.w : 0.f;
-  return g;
-}
-
-__device__ __forceinline__ void zero_acc(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-// Stores the warps' accumulators into the [BM][C_LD] float tile Cs.
-__device__ __forceinline__ void stage_acc(
-    float* Cs, wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[2][2],
-    int wm, int wn) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * C_LD + wn * 32 + j * 16],
-                              acc[i][j], C_LD, wmma::mem_row_major);
-}
-
-// K2's operand pass: dst[r, c] = bf16_rn(mask ? src[r, c] : 0) for c < cols
-// and 0 for cols <= c < ldd, mask = 0 < out[r, c] < 1 where `out` is given
-// and true where it is null. One thread makes 8 outputs, one 16-byte store;
-// `vec` (cols == ldd, 16-byte aligned rows) takes 16-byte loads too.
+// The operand pass of K2 and K3: dst[r, c] = bf16_rn(mask ? src[r, c] : 0)
+// for c < cols and 0 for cols <= c < ldd, mask = 0 < out[r, c] < 1 where
+// `out` is given and true where it is null. One thread makes 8 outputs, one
+// 16-byte store; `vec` (cols == ldd, 16-byte aligned rows) takes 16-byte
+// loads too.
 __global__ void __launch_bounds__(256)
 round_bf16_kernel(const float* __restrict__ src, const float* __restrict__ out,
                   __nv_bfloat16* __restrict__ dst, long long rows, int cols, int ldd, int vec) {
@@ -271,96 +254,6 @@ round_bf16_kernel(const float* __restrict__ src, const float* __restrict__ out,
   }
 }
 
-// K3. dW tile: 64 rows of K by 128 columns of N, contracting M in steps of 32.
-constexpr int AT_LD = BM + 8;               // X tile [32 m][64 k]: col-major A
-constexpr int DW_A_ELEMS = BK * AT_LD;
-constexpr int DW_B_ELEMS = BK * B_LD;       // gm tile [32 m][128 n]
-constexpr int DW_A_VECS = BK * BM / 4 / THREADS;  // 2
-constexpr int DW_B_VECS = BK * BN / 4 / THREADS;  // 4
-constexpr int DW_SMEM = (DW_A_ELEMS + DW_B_ELEMS) * 2 > BM * C_LD * 4
-                            ? (DW_A_ELEMS + DW_B_ELEMS) * 2 : BM * C_LD * 4;
-
-__global__ void __launch_bounds__(THREADS)
-fused_output_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                       const float* __restrict__ out, float* __restrict__ dw,
-                       int M, int K, int N, int vec) {
-  __shared__ __align__(128) unsigned char smem[DW_SMEM];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + DW_A_ELEMS;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int k0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  zero_acc(acc);
-
-  float4 rx[DW_A_VECS], rg[DW_B_VECS], ro[DW_B_VECS];
-  auto fetch = [&](int mm) {
-#pragma unroll
-    for (int i = 0; i < DW_A_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      const int r = f / (BM / 4);
-      const int c = (f % (BM / 4)) * 4;
-      rx[i] = load4(x, (size_t)(mm + r) * K, k0 + c, mm + r < M, K, vec);
-    }
-#pragma unroll
-    for (int i = 0; i < DW_B_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      const int r = f / (BN / 4);
-      const int c = (f % (BN / 4)) * 4;
-      const size_t off = (size_t)(mm + r) * N;
-      rg[i] = load4(g, off, n0 + c, mm + r < M, N, vec);
-      ro[i] = load4(out, off, n0 + c, mm + r < M, N, vec);
-    }
-  };
-
-  fetch(0);
-  for (int mm = 0; mm < M; mm += BK) {
-#pragma unroll
-    for (int i = 0; i < DW_A_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      store_bf16x4(&As[(f / (BM / 4)) * AT_LD + (f % (BM / 4)) * 4], rx[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < DW_B_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      store_bf16x4(&Bs[(f / (BN / 4)) * B_LD + (f % (BN / 4)) * 4], mask4(rg[i], ro[i]));
-    }
-    __syncthreads();
-    if (mm + BK < M) fetch(mm + BK);
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[kk * AT_LD + wm * 32 + i * 16], AT_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * B_LD + wn * 32 + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  stage_acc(Cs, acc, wm, wn);
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN;
-    const int c = idx % BN;
-    if (k0 + r < K && n0 + c < N) dw[(size_t)(k0 + r) * N + n0 + c] = Cs[r * C_LD + c];
-  }
-}
-
 }  // namespace
 
 static int aligned16(const void* a, const void* b, const void* c) {
@@ -382,7 +275,7 @@ extern "C" int afr_fused_output_fwd(const float* x, const float* w, const float*
   return (int)cudaGetLastError();
 }
 
-// K2's operand pass: src (and out, or null) [rows, cols] f32 contiguous ->
+// The operand pass: src (and out, or null) [rows, cols] f32 contiguous ->
 // dst [rows, ldd] bf16, ldd a multiple of 8 and >= cols.
 extern "C" int afr_round_bf16(const float* src, const float* out, void* dst, int rows, int cols,
                               int ldd, void* stream) {
@@ -398,21 +291,40 @@ extern "C" int afr_round_bf16(const float* src, const float* out, void* dst, int
   return (int)cudaGetLastError();
 }
 
-// The GEMM as built for the card: {registers a thread, static shared
-// memory, dynamic shared memory, threads a block, stages, BM, BN}; returns
-// a CUDA error.
-extern "C" int afr_gemm_bf16_tn_attrs(int* out) {
+// A GEMM as built for the card: {registers a thread, static shared memory,
+// dynamic shared memory, threads a block, stages, BM, BN}; returns a CUDA
+// error.
+static int gemm_attrs(const void* kernel, int smem, int stages, int bm, int bn, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, sm90::gemm_bf16_tn_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.sharedSizeBytes;
-  out[2] = sm90::GEMM_SMEM;
+  out[2] = smem;
   out[3] = sm90::GEMM_THREADS;
-  out[4] = sm90::GEMM_STAGES;
-  out[5] = sm90::GEMM_BM;
-  out[6] = sm90::GEMM_BN;
+  out[4] = stages;
+  out[5] = bm;
+  out[6] = bn;
   return 0;
+}
+
+extern "C" int afr_gemm_bf16_tn_attrs(int* out) {
+  return gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_tn_kernel), sm90::GEMM_SMEM,
+                    sm90::GEMM_STAGES, sm90::GEMM_BM, sm90::GEMM_BN, out);
+}
+
+extern "C" int afr_gemm_bf16_mn_attrs(int* out) {
+  return gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_mn_kernel), sm90::MN_SMEM,
+                    sm90::MN_STAGES, sm90::MN_BM, sm90::MN_BN, out);
+}
+
+// 0 when a GEMM was built with the registers that setmaxnreg's request
+// needs at launch, else a CUDA error.
+static int launch_regs_ok(int (*attrs)(int*)) {
+  int a[7];
+  const int rc = attrs(a);
+  if (rc != 0) return rc;
+  return a[0] < sm90::LAUNCH_REGS ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
 // K2's product: c [M, K] f32 = a [M, N] . b [K, N]^T, a and b bf16 with row
@@ -426,14 +338,8 @@ extern "C" int afr_gemm_bf16_tn(const void* a, const void* b, float* c, int M, i
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   if ((K + sm90::GEMM_BN - 1) / sm90::GEMM_BN > 65535) return (int)cudaErrorInvalidValue;
-  static int checked = 0;
-  if (!checked) {
-    int attrs[7];
-    const int rc = afr_gemm_bf16_tn_attrs(attrs);
-    if (rc != 0) return rc;
-    if (attrs[0] < sm90::LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
-    checked = 1;
-  }
+  static const int regs_rc = launch_regs_ok(afr_gemm_bf16_tn_attrs);
+  if (regs_rc != 0) return regs_rc;
   CUtensorMap map_a, map_b;
   int rc = sm90::encode_bf16_map(&map_a, a, M, N, ld, sm90::GEMM_BM);
   if (rc != 0) return 1000 + rc;
@@ -451,14 +357,39 @@ extern "C" int afr_gemm_bf16_tn(const void* a, const void* b, float* c, int M, i
   return (int)cudaGetLastError();
 }
 
-// K3: x [M, K]; g, out [M, N]; dw [K, N]; all float32, contiguous.
-extern "C" int afr_fused_output_dw(const float* x, const float* g, const float* out,
-                                   float* dw, int M, int K, int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
-  const int vec = (K % 4 == 0) && (N % 4 == 0) && aligned16(x, g, out);
-  const dim3 grid((K + BM - 1) / BM, (N + BN - 1) / BN);
-  fused_output_dw_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, g, out, dw, M, K, N, vec);
+// K3's product: c [K, N] f32 (row stride ldc, a multiple of 4, >= N) =
+// a[:, :K]^T . b[:, :N], a [M, lda] and b [M, ldb] bf16 (row strides
+// multiples of 8, lda >= K, ldb >= N), all 16-byte aligned; tiles of
+// 128 x 256 on a persistent grid of at most one block an SM. Errors as for
+// afr_gemm_bf16_tn.
+extern "C" int afr_gemm_bf16_mn(const void* a, const void* b, float* c, int M, int K, int N,
+                                int lda, int ldb, int ldc, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || lda < K || ldb < N || ldc < N || lda % 8 != 0 ||
+      ldb % 8 != 0 || ldc % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(a, b, c)) return (int)cudaErrorMisalignedAddress;
+  static const int regs_rc = launch_regs_ok(afr_gemm_bf16_mn_attrs);
+  if (regs_rc != 0) return regs_rc;
+  CUtensorMap map_a, map_b, map_c;
+  int rc = sm90::encode_bf16_map(&map_a, a, M, K, lda, sm90::BK);
+  if (rc != 0) return 1000 + rc;
+  rc = sm90::encode_bf16_map(&map_b, b, M, N, ldb, sm90::BK);
+  if (rc != 0) return 1000 + rc;
+  rc = sm90::encode_f32_store_map(&map_c, c, K, N, ldc);
+  if (rc != 0) return 1000 + rc;
+  cudaError_t err = cudaFuncSetAttribute(sm90::gemm_bf16_mn_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         sm90::MN_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles =
+      (long long)((K + sm90::MN_BM - 1) / sm90::MN_BM) * ((N + sm90::MN_BN - 1) / sm90::MN_BN);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  sm90::gemm_bf16_mn_kernel<<<grid, sm90::GEMM_THREADS, sm90::MN_SMEM,
+                              static_cast<cudaStream_t>(stream)>>>(map_a, map_b, map_c, M, K, N);
   return (int)cudaGetLastError();
 }

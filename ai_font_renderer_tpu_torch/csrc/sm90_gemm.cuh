@@ -1,9 +1,24 @@
-// A bf16 x bf16 -> f32 GEMM for sm_90a with both operands contiguous along
-// the contraction axis: C[M, K] = A[M, N] . B[K, N]^T ("TN", the K-major
-// no-transpose case of wgmma). It is K2's product (dX = gm16 . w16^T) and
-// the core that K1 and K3 are meant to share.
+// Two bf16 x bf16 -> f32 GEMMs for sm_90a, built from the same pieces: TMA
+// loads with the 128-byte swizzle into a ring of stages in dynamic shared
+// memory, a full and an empty mbarrier a stage, one producer warp and two
+// consumer warpgroups that run wgmma, and a barrier wait that traps after
+// about eight seconds.
 //
-// Design (one output tile of 128 x 200 per block, not persistent):
+// gemm_bf16_tn_kernel is K2's product, dX = gm16 . w16^T: C[M, K] =
+// A[M, N] . B[K, N]^T, both operands contiguous along the contraction axis
+// ("TN", the K-major no-transpose case of wgmma).
+//
+// gemm_bf16_mn_kernel is K3's product, dW = x16^T . gm16: C[K, N] =
+// A[M, K]^T . B[M, N], both operands contiguous along the output axes
+// ("MN-major", wgmma's two transpose bits set). Its design follows the TN
+// kernel's below, with four differences: tiles of 128 x 256 (m64n256k16,
+// 128 accumulators a consumer thread) from stages of 64 contraction rows;
+// MN-major descriptors; a persistent grid; and TMA stores of the result
+// from shared memory (see its own note further down). It contracts over
+// the batch, only 16 k-blocks at M = 1024, and writes a 491.5 MB dW, so
+// the epilogue matters as it does not for K2.
+//
+// TN design (one output tile of 128 x 200 per block, not persistent):
 //   * TMA 2-D tiled loads with the 128-byte swizzle fill a ring of five
 //     stages in dynamic shared memory; a stage is one 128 x 64 tile of A and
 //     one 200 x 64 tile of B (64 bf16 = one 128-byte swizzle row). Each stage
@@ -23,6 +38,14 @@
 // byte offset 1024 >> 4 (8 rows of 128 bytes) in bits 32-45, layout 1
 // (SWIZZLE_128B) in bits 62-63. A k16 step advances the start by 32 bytes
 // inside the swizzled row; every stage buffer is 1024-byte aligned.
+//
+// For an MN-major operand each 128-byte swizzled row holds 64 elements of
+// the output axis at one contraction index. The leading byte offset
+// (bits 16-29) is then the stride between such 64-wide atoms along the
+// output axis (8 KB, one TMA box), the stride byte offset the stride
+// between groups of 8 contraction rows (1024 bytes), as in CuTe's
+// make_gmma_desc<Major::MN>; a k16 step advances the start by 16 rows,
+// 2048 bytes.
 #pragma once
 
 #include <cuda.h>
@@ -244,6 +267,237 @@ gemm_bf16_tn_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// Descriptor of an MN-major operand with the 128-byte swizzle whose 64-wide
+// atoms along the output axis lie `atom_stride` bytes apart.
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p, uint32_t atom_stride) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(atom_stride >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d += A(64 x 16, desc a) . B(16 x 256, desc b), both MN-major (scale-d 1,
+// imm-trans-a = imm-trans-b = 1); d holds 128 floats a thread.
+__device__ __forceinline__ void wgmma_m64n256k16_mn(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, 1, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b));
+}
+
+// TMA store of the box at (col, row) of `map` from shared memory, in the
+// issuing thread's current bulk async-group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Makes this thread's shared-memory writes visible to the TMA (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier `id` (1-15) over `count` threads: one consumer warpgroup alone.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The MN GEMM's tile: 128 rows of C (64 for each consumer warpgroup) by 256
+// columns, 50 x 75 = 3,750 tiles at K = 6400, N = 19200. A stage is 64
+// contraction rows deep: two 64 x 64 boxes of A and four of B, 8 KB each
+// (64 rows of one 128-byte swizzled row), 48 KB in all; four stages fill
+// 192 KB. Each consumer warpgroup has two epilogue buffers of 64 rows x 32
+// floats (8 KB, 128-byte swizzle), 32 KB in all. One block an SM, as for
+// the TN kernel, with the same register split (setmaxnreg 40 / 232, 168 at
+// launch).
+constexpr int MN_BM = 128;
+constexpr int MN_BN = 256;
+constexpr int MN_BOX_BYTES = BK * TILE_BYTES_PER_ROW;  // 8 KB
+constexpr int MN_A_BYTES = (MN_BM / 64) * MN_BOX_BYTES;
+constexpr int MN_B_BYTES = (MN_BN / 64) * MN_BOX_BYTES;
+constexpr int MN_STAGE_BYTES = MN_A_BYTES + MN_B_BYTES;
+constexpr int MN_STAGES = 4;
+constexpr int MN_EPI_COLS = 32;                     // floats in one 128-byte row
+constexpr int MN_EPI_BYTES = 64 * MN_EPI_COLS * 4;  // 8 KB
+constexpr int MN_RING_BYTES = MN_STAGES * MN_STAGE_BYTES;
+constexpr int MN_SMEM = MN_RING_BYTES + 4 * MN_EPI_BYTES + 2 * MN_STAGES * 8 + 1024;
+static_assert(MN_SMEM <= 227 * 1024, "the ring must fit an SM's shared memory");
+// A k16 step: 16 contraction rows of 128 bytes, in descriptor units (>> 4).
+constexpr int MN_K16_STEP = 16 * TILE_BYTES_PER_ROW >> 4;
+
+// C[K, N] = A[M, K]^T . B[M, N]; the maps give A and B as bf16 with boxes
+// of 64 columns by 64 rows, and C as f32 with boxes of 32 columns by 64
+// rows, all with the 128-byte swizzle.
+//
+// Persistent schedule: the grid is at most one block an SM, and block b
+// takes tiles b, b + gridDim.x, ..., rows of C fastest, so the blocks that
+// share a column strip of B run together and all of A stays in L2. The
+// producer and the consumers count k-blocks across tiles (`it`), and stage
+// and parity come from that running count: the producer runs on through
+// the ring into the next tile while the consumers store the last one.
+// Within a tile a consumer frees stage it - 1 after wait_group 1, and the
+// tile's last stage after wait_group 0, before its stores.
+//
+// Epilogue: a warpgroup's 64 x 256 accumulators leave in eight chunks of 32
+// columns, each written to one of its two epilogue buffers and sent by one
+// TMA store, which clips at the K and N edges. The stores drain while the
+// next tile multiplies: a tile's 128 KB of dW is about 5 us of an SM's
+// share of device memory, which stores from registers made the consumers
+// wait out. One thread of each warpgroup issues its stores and, before a
+// buffer is written again, waits until the store that last read it is done
+// reading.
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+gemm_bf16_mn_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const __grid_constant__ CUtensorMap map_c, int M, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* epi = smem + MN_RING_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + 4 * MN_EPI_BYTES);
+  uint64_t* empty = full + MN_STAGES;
+
+  const int row_tiles = (K + MN_BM - 1) / MN_BM;
+  const int tiles = row_tiles * ((N + MN_BN - 1) / MN_BN);
+  const int k_blocks = (M + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < MN_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      uint32_t it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int r0 = (t % row_tiles) * MN_BM;
+        const int n0 = (t / row_tiles) * MN_BN;
+        for (int i = 0; i < k_blocks; ++i, ++it) {
+          const int s = it % MN_STAGES;
+          mbar_wait(&empty[s], ((it / MN_STAGES) & 1) ^ 1);  // round 0 passes at once
+          unsigned char* st = smem + s * MN_STAGE_BYTES;
+          mbar_expect_tx(&full[s], MN_STAGE_BYTES);  // full boxes, even out of bounds
+#pragma unroll
+          for (int j = 0; j < MN_BM / 64; ++j)
+            tma_load_2d(st + j * MN_BOX_BYTES, &map_a, &full[s], r0 + 64 * j, i * BK);
+#pragma unroll
+          for (int j = 0; j < MN_BN / 64; ++j)
+            tma_load_2d(st + MN_A_BYTES + j * MN_BOX_BYTES, &map_b, &full[s], n0 + 64 * j, i * BK);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    float d[MN_BN / 2];
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % 128) / 32;
+    const bool issuer = threadIdx.x % 128 == 0;
+    unsigned char* bufs = epi + (wg - 1) * 2 * MN_EPI_BYTES;
+    uint32_t it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int r0 = (t % row_tiles) * MN_BM;
+      const int n0 = (t / row_tiles) * MN_BN;
+#pragma unroll
+      for (int j = 0; j < MN_BN / 2; ++j) d[j] = 0.f;
+      for (int i = 0; i < k_blocks; ++i, ++it) {
+        const int s = it % MN_STAGES;
+        mbar_wait(&full[s], (it / MN_STAGES) & 1);
+        const unsigned char* st = smem + s * MN_STAGE_BYTES;
+        // This warpgroup's 64 rows of C are the columns of one box of A.
+        const uint64_t da = sw128_mn_desc(st + (wg - 1) * MN_BOX_BYTES, MN_BOX_BYTES);
+        const uint64_t db = sw128_mn_desc(st + MN_A_BYTES, MN_BOX_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_m64n256k16_mn(d, da + kk * MN_K16_STEP, db + kk * MN_K16_STEP);
+        wgmma_commit();
+        wgmma_wait<1>();  // the group of stage it-1 is done: free that stage
+        if (i > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % MN_STAGES]);
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % MN_STAGES]);
+
+      // Accumulator layout as in the TN kernel: register 4j + 2h + c of
+      // thread t holds row 16*(t/32) + (t%32)/4 + 8h, column 8j + 2*(t%4) + c.
+      // In a buffer, row r's 16-byte chunk x sits at chunk x ^ (r % 8).
+#pragma unroll
+      for (int q = 0; q < MN_BN / MN_EPI_COLS; ++q) {
+        unsigned char* buf = bufs + (q & 1) * MN_EPI_BYTES;
+        if (issuer) bulk_wait_read<1>();  // the store of chunk q - 2 has read buf
+        named_bar_sync(wg, 128);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + lane / 4 + 8 * h;
+#pragma unroll
+          for (int jj = 0; jj < MN_EPI_COLS / 8; ++jj) {
+            const int j = q * (MN_EPI_COLS / 8) + jj;
+            const int chunk = (2 * jj + (lane % 4) / 2) ^ (r % 8);
+            *reinterpret_cast<float2*>(buf + r * 128 + chunk * 16 + (lane % 2) * 8) =
+                make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+          }
+        }
+        fence_proxy_async();
+        named_bar_sync(wg, 128);
+        if (issuer) {
+          tma_store_2d(&map_c, buf, n0 + q * MN_EPI_COLS, r0 + (wg - 1) * 64);
+          bulk_commit();
+        }
+      }
+    }
+    if (issuer) bulk_wait_all();
+  }
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no link against libcuda.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -283,6 +537,21 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rows, int col
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A map over the f32 matrix [rows, cols] with row stride ld elements (ld * 4
+// bytes a multiple of 16) for TMA stores: boxes of 32 columns (128 bytes) by
+// 64 rows, 128-byte swizzle. Returns 0 or the CUresult.
+inline int encode_f32_store_map(CUtensorMap* map, void* base, int rows, int cols, int ld) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)MN_EPI_COLS, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace sm90

@@ -25,6 +25,8 @@ from .fused_output import (
     fused_output_dx_reference,
     fused_output_fwd,
     fused_output_reference,
+    gemm_bf16_mn,
+    gemm_bf16_mn_reference,
     gemm_bf16_tn,
     gemm_bf16_tn_reference,
     round_bf16,
@@ -51,6 +53,8 @@ __all__ = [
     "fused_output_dx_reference",
     "fused_output_fwd",
     "fused_output_reference",
+    "gemm_bf16_mn",
+    "gemm_bf16_mn_reference",
     "gemm_bf16_tn",
     "gemm_bf16_tn_reference",
     "round_bf16",

@@ -12,19 +12,24 @@ fused_output.py:
   two kernels: ``round_bf16``, the operand pass that masks and rounds g and
   rounds w to bf16 rows padded to a multiple of 8, then ``gemm_bf16_tn``,
   the TMA + wgmma product of csrc/sm90_gemm.cuh;
-* ``fused_output_dw`` -- K3, ``_dw_kernel``: bf16(x)^T @ bf16(g * mask);
+* ``fused_output_dw`` -- K3, ``_dw_kernel``: bf16(x)^T @ bf16(g * mask), in
+  two kernels: ``round_bf16`` for x and for the masked g, then
+  ``gemm_bf16_mn``, the TMA + wgmma product on MN-major operands;
 
 with mask = 0 < out < 1: the clamp passes a gradient only strictly inside
 its bounds (torch.clamp's own backward also passes it at the bounds).
 ``fused_output`` is the entry point, :class:`FusedOutputFunction`: K1
-forward, K2 and K3 backward, db = sum(g * mask) in PyTorch. Unlike the TPU
-path, which runs its kernels only when M, K and N are multiples of 128 and
-otherwise falls back to plain ops, the CUDA kernels mask the ragged edge.
+forward, K2 and K3 backward, db = sum(g * mask) in PyTorch. Its backward
+forms the masked cotangent gm16 once and hands it to both GEMMs. Unlike the
+TPU path, which runs its kernels only when M, K and N are multiples of 128
+and otherwise falls back to plain ops, the CUDA kernels mask the ragged
+edge.
 
 Launch counts: K1's on ``fused_output.launches``, K2's and K3's on
-``fused_output_dx.launches`` (one a call) and ``fused_output_dw.launches``;
-K2's two kernels on ``round_bf16.launches`` (two a K2 call) and
-``gemm_bf16_tn.launches``.
+``fused_output_dx.launches`` and ``fused_output_dw.launches`` (one a call,
+the backward's included); the operand pass on ``round_bf16.launches`` (two
+a K2 or K3 call, three a backward with all three gradients) and the GEMMs
+on ``gemm_bf16_tn.launches`` and ``gemm_bf16_mn.launches``.
 """
 
 from __future__ import annotations
@@ -36,13 +41,13 @@ import torch
 from . import _build
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = ([_PTR] * 4 + [_INT] * 3 + [_PTR], ctypes.c_int)
 _SIGNATURES = {
-    "afr_fused_output_fwd": _SIGNATURE,
-    "afr_fused_output_dw": _SIGNATURE,
+    "afr_fused_output_fwd": ([_PTR] * 4 + [_INT] * 3 + [_PTR], ctypes.c_int),
     "afr_round_bf16": ([_PTR] * 3 + [_INT] * 3 + [_PTR], ctypes.c_int),
     "afr_gemm_bf16_tn": ([_PTR] * 3 + [_INT] * 4 + [_PTR], ctypes.c_int),
+    "afr_gemm_bf16_mn": ([_PTR] * 3 + [_INT] * 6 + [_PTR], ctypes.c_int),
     "afr_gemm_bf16_tn_attrs": ([_PTR], ctypes.c_int),
+    "afr_gemm_bf16_mn_attrs": ([_PTR], ctypes.c_int),
 }
 
 
@@ -96,6 +101,13 @@ def gemm_bf16_tn_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The GEMM's plain version: a [M, L] @ b [K, L]^T of bf16 values, in
     f32 (each product is exact in f32)."""
     return a.float() @ b.float().T
+
+
+def gemm_bf16_mn_reference(a: torch.Tensor, b: torch.Tensor, k: int | None = None,
+                           n: int | None = None) -> torch.Tensor:
+    """K3's GEMM's plain version: a[:, :k]^T @ b[:, :n] of bf16 values, in
+    f32 (each product is exact in f32); k and n default to the widths."""
+    return a[:, :k].float().T @ b[:, :n].float()
 
 
 def fused_output_dw_reference(x: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -152,10 +164,10 @@ def fused_output_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
 
 
 def round_bf16(src: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-    """K2's operand pass: bf16 (nearest even) of src where 0 < out < 1 and 0
-    elsewhere (no mask when out is None), src and out [rows, cols] float32
-    -> [rows, padded_width(cols)] bfloat16, pad columns zero. Counts on
-    ``round_bf16.launches``."""
+    """The operand pass of K2 and K3: bf16 (nearest even) of src where
+    0 < out < 1 and 0 elsewhere (no mask when out is None), src and out
+    [rows, cols] float32 -> [rows, padded_width(cols)] bfloat16, pad columns
+    zero. Counts on ``round_bf16.launches``."""
     if src.device.type == "cpu":
         return round_bf16_reference(src, out)
     _require_cuda("round_bf16", src)
@@ -192,15 +204,46 @@ def gemm_bf16_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
-def gemm_bf16_tn_attributes(device="cuda") -> dict:
-    """The GEMM kernel as built for the card: registers a thread, static and
-    dynamic shared memory a block (bytes), threads a block, ring stages,
-    and the tile (bm x bn)."""
+def gemm_bf16_mn(a: torch.Tensor, b: torch.Tensor, k: int | None = None,
+                 n: int | None = None) -> torch.Tensor:
+    """K3's product: a[:, :k]^T @ b[:, :n] in f32 -> [k, n], a [L, Ka] and
+    b [L, Nb] contiguous bfloat16 with Ka and Nb multiples of 8 (as
+    ``round_bf16`` pads them), k <= Ka and n <= Nb (default: the widths).
+    Tiles of 128 x 256 on a persistent grid. The TMA stores of the result
+    need rows of a multiple of 16 bytes: for n not a multiple of 4 the
+    result is the [k, n] view of a [k, n rounded up to 4] tensor. Counts on
+    ``gemm_bf16_mn.launches``."""
+    if a.device.type == "cpu":
+        return gemm_bf16_mn_reference(a, b, k, n)
+    _require_cuda("gemm_bf16_mn", a)
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or not t.is_contiguous() or t.device != a.device:
+            raise ValueError(f"gemm_bf16_mn: {name} must be a contiguous 2-D bfloat16 tensor on {a.device}")
+    (depth, ka), (depth_b, nb) = a.shape, b.shape
+    k, n = ka if k is None else k, nb if n is None else n
+    if depth_b != depth or ka % 8 or nb % 8 or not (0 <= k <= ka and 0 <= n <= nb):
+        raise ValueError(f"gemm_bf16_mn: a [L, Ka] and b [L, Nb] need one depth L, widths that are "
+                         f"multiples of 8 and k <= Ka, n <= Nb; got {tuple(a.shape)}, {tuple(b.shape)}, "
+                         f"k={k}, n={n}")
+    if not depth:
+        return torch.zeros((k, n), dtype=torch.float32, device=a.device)
+    ldc = -(-n // 4) * 4
+    c = torch.empty((k, ldc), dtype=torch.float32, device=a.device)
+    if k and n:
+        _launch(gemm_bf16_mn, "afr_gemm_bf16_mn", (a, b, c), (depth, k, n, ka, nb, ldc), a.device)
+    return c if ldc == n else c[:, :n]
+
+
+def gemm_attributes(kind: str, device="cuda") -> dict:
+    """A GEMM kernel as built for the card (``kind`` "tn", K2's, or "mn",
+    K3's): registers a thread, static and dynamic shared memory a block
+    (bytes), threads a block, ring stages, and the tile (bm x bn)."""
+    fn_name = {"tn": "afr_gemm_bf16_tn_attrs", "mn": "afr_gemm_bf16_mn_attrs"}[kind]
     attrs = (ctypes.c_int * 7)()
     with torch.cuda.device(device):
-        rc = _build.load("fused_output", _SIGNATURES).afr_gemm_bf16_tn_attrs(attrs)
+        rc = getattr(_build.load("fused_output", _SIGNATURES), fn_name)(attrs)
     if rc != 0:
-        raise RuntimeError(f"afr_gemm_bf16_tn_attrs failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
     keys = ("registers", "static_smem", "dynamic_smem", "threads", "stages", "bm", "bn")
     return dict(zip(keys, attrs))
 
@@ -220,14 +263,22 @@ def fused_output_dx(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> torc
     dev = _check("fused_output_dx", {"g": g, "out": out, "w": w}, {"g": (m, n), "out": (m, n), "w": (k, n)})
     if not m:
         return torch.empty((0, k), dtype=torch.float32, device=dev)
-    dx = gemm_bf16_tn(round_bf16(g, out), round_bf16(w))
+    return _dx(round_bf16(g, out), w)
+
+
+def _dx(gm16: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K2 on its masked operand gm16 [M, Np]: gm16 @ bf16(w)^T; counts one
+    K2 call."""
+    dx = gemm_bf16_tn(gm16, round_bf16(w))
     fused_output_dx.launches += 1
     return dx
 
 
 def fused_output_dw(x: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """K3: dW = bf16(x)^T @ bf16(g * mask(out)) in f32. x [M, K], g and
-    out [M, N] -> [K, N]. ``fused_output_dw.launches`` counts launches."""
+    out [M, N] -> [K, N]. On the card: the operand pass twice (x16 [M, Kp],
+    gm16 [M, Np]) and the MN-major GEMM once. ``fused_output_dw.launches``
+    counts K3 calls."""
     if x.device.type == "cpu":
         return fused_output_dw_reference(x, g, out)
     _require_cuda("fused_output_dw", x)
@@ -238,8 +289,14 @@ def fused_output_dw(x: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> torc
     dev = _check("fused_output_dw", {"x": x, "g": g, "out": out}, {"x": (m, k), "g": (m, n), "out": (m, n)})
     if not m:
         return torch.zeros((k, n), dtype=torch.float32, device=dev)
-    dw = torch.empty((k, n), dtype=torch.float32, device=dev)
-    _launch(fused_output_dw, "afr_fused_output_dw", (x, g, out, dw), (m, k, n), dev)
+    return _dw(x, round_bf16(g, out), n)
+
+
+def _dw(x: torch.Tensor, gm16: torch.Tensor, n: int) -> torch.Tensor:
+    """K3 on the masked operand gm16 [M, Np]: bf16(x)^T @ gm16[:, :n];
+    counts one K3 call."""
+    dw = gemm_bf16_mn(round_bf16(x), gm16, x.shape[1], n)
+    fused_output_dw.launches += 1
     return dw
 
 
@@ -247,7 +304,8 @@ class FusedOutputFunction(torch.autograd.Function):
     """clamp(bf16(x) @ bf16(w) + b, 0, 1) with the projection's own
     gradient: K1 forward; K2 for dx, K3 for dw and db = sum(g * mask) in
     PyTorch, all with the strict mask 0 < out < 1 (the JAX package's
-    custom VJP, ops/fused_output.py:_bwd_rule)."""
+    custom VJP, ops/fused_output.py:_bwd_rule). On the card the masked
+    cotangent gm16 is formed once, for both K2 and K3."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -259,9 +317,16 @@ class FusedOutputFunction(torch.autograd.Function):
     def backward(ctx, g):
         x, w, out = ctx.saved_tensors
         g = g.contiguous()
-        dx = fused_output_dx(g, out, w) if ctx.needs_input_grad[0] else None
-        dw = fused_output_dw(x, g, out) if ctx.needs_input_grad[1] else None
-        db = torch.where(clamp_mask(out), g, 0.0).sum(0) if ctx.needs_input_grad[2] else None
+        need_dx, need_dw, need_db = ctx.needs_input_grad
+        dx = dw = None
+        if g.device.type == "cpu" or not g.shape[0]:
+            dx = fused_output_dx(g, out, w) if need_dx else None
+            dw = fused_output_dw(x, g, out) if need_dw else None
+        elif need_dx or need_dw:
+            gm16 = round_bf16(g, out)
+            dx = _dx(gm16, w) if need_dx else None
+            dw = _dw(x, gm16, g.shape[1]) if need_dw else None
+        db = torch.where(clamp_mask(out), g, 0.0).sum(0) if need_db else None
         return dx, dw, db
 
 
@@ -277,3 +342,4 @@ fused_output_dx.launches = 0
 round_bf16.launches = 0
 gemm_bf16_tn.launches = 0
 fused_output_dw.launches = 0
+gemm_bf16_mn.launches = 0

@@ -2,13 +2,14 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --step-memory   # only the peak memory of one training step
 
 Phases, each of which raises on failure, each with its seconds:
 
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
    the port from csrc/ (one nvcc per source, all at once), with the build
    time, ptxas's registers and shared memory for each kernel, and the K2
-   GEMM's launch shape and dynamic shared memory.
+   and K3 GEMMs' launch shapes and dynamic shared memory.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it: max abs error against the stated tolerance,
    and times from CUDA events for the kernel, the plain version, one
@@ -16,9 +17,11 @@ Phases, each of which raises on failure, each with its seconds:
    never calls), and the least time the card could take (bytes over
    3.35 TB/s or operations over the peak rate of their type). K1 and the
    attention forward at the serving shapes; K2, K3 and K4 at M = 200 and
-   1024 rows of the 6400 x 19200 projection, with K2's two kernels (the
-   bf16 operand pass, bit for bit, and the TMA + wgmma GEMM) checked and
-   timed alone; the attention forward with
+   1024 rows of the 6400 x 19200 projection, with the kernels of K2 and
+   K3 checked and timed alone: the bf16 operand pass bit for bit (the
+   masked cotangent, W and x), K2's TMA + wgmma GEMM on K-major operands
+   and K3's on MN-major ones (a persistent grid of 128 x 256 tiles); the
+   attention forward with
    dropout 0.2 (K5 in f32, K7 in bf16 and f32), K7's stored mask byte for
    byte against the plain Philox mask, and the backward kernels K6 and K8
    at batch 1024 in f32 and bf16; K9 (K4 on a transposed x) at M = 1024,
@@ -45,8 +48,8 @@ Phases, each of which raises on failure, each with its seconds:
    configuration, the trained weights through the npz file and rendered
    against the plain path, steps/s of each configuration, and a profile of
    one step.
-6. One JSON line listing every kernel (K1-K9, and K2's operand pass and
-   GEMM) with its launches on the
+6. One JSON line listing every kernel (K1-K9, the operand pass, and the
+   GEMMs of K2 and K3) with its launches on the
    main paths (phases 3, 4 and 5 and the K4/K9 A/B; counts are set to 0
    just before each drive and read just after), its error and its times.
 
@@ -161,7 +164,7 @@ def _attn_peak(dt) -> float:
 
 def phase_build() -> float:
     from ai_font_renderer_tpu_torch.ops import _build
-    from ai_font_renderer_tpu_torch.ops.fused_output import gemm_bf16_tn_attributes
+    from ai_font_renderer_tpu_torch.ops.fused_output import gemm_attributes
 
     t0 = time.perf_counter()
     reports = _build.build()
@@ -172,8 +175,9 @@ def phase_build() -> float:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {name}.cu {line.strip()}", flush=True)
-    # The GEMM's shared memory is dynamic, which ptxas does not report.
-    print(f"[build] K2 GEMM as loaded: {json.dumps(gemm_bf16_tn_attributes())}", flush=True)
+    # The GEMMs' shared memory is dynamic, which ptxas does not report.
+    for kind, name in (("tn", "K2"), ("mn", "K3")):
+        print(f"[build] {name} GEMM as loaded: {json.dumps(gemm_attributes(kind))}", flush=True)
     print(f"[build] kernels built in {seconds:.2f} s", flush=True)
     return seconds
 
@@ -300,10 +304,81 @@ def _k2_parts(cot, out, w, m, k, n, round_rows, gemm_rows) -> dict:
     }
 
 
+def _k3_parts(x, cot, out, m, k, n, round_rows, mn_rows) -> dict:
+    """K3's kernels on K3's inputs: x's operand pass bit for bit against its
+    plain version (the masked pass is K2's, checked there), the MN-major
+    GEMM on x16 and gm16 against its plain version; their rows for the
+    kernels line, and K3's own extra fields: prep_ms (both passes), gemm_ms,
+    gemm_tflops, and library_with_casts_ms (the mask, the two casts and
+    torch.mm: the same two-pass work in PyTorch)."""
+    from ai_font_renderer_tpu_torch.ops.fused_output import (
+        clamp_mask,
+        gemm_bf16_mn,
+        gemm_bf16_mn_reference,
+        padded_width,
+        round_bf16,
+        round_bf16_reference,
+    )
+
+    kpad, npad = padded_width(k), padded_width(n)
+    x16, gm16 = round_bf16(x), round_bf16(cot, out)
+    want = round_bf16_reference(x)
+    torch.cuda.synchronize()
+    if not torch.equal(x16.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"K3 operand pass x M={m},K={k}: differs from its plain version")
+    bound_ms, bound_by = _bound(4 * m * k + 2 * m * kpad, 0, BF16_TENSOR_FLOPS)
+    row = {
+        "shape": f"x M={m},K={k}",
+        "max_abs_err": float((x16.float() - want.float()).abs().max()),
+        "tol": "bit for bit",
+        "ms": time_ms(lambda: round_bf16(x), 10),
+        "plain_ms": time_ms(lambda: round_bf16_reference(x), 5),
+        # K is a multiple of 8: no pad, the pass is one cast.
+        "library_ms": time_ms(lambda: x.to(torch.bfloat16), 10),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    print(f"[K3 round_bf16] {json.dumps(row)}", flush=True)
+    round_rows.append(row)
+    del want
+
+    got, want = gemm_bf16_mn(x16, gm16, k, n), gemm_bf16_mn_reference(x16, gm16, k, n)
+    torch.cuda.synchronize()
+    rel = _rel(got, want)
+    if not rel <= GRAD_REL_TOL:
+        raise AssertionError(f"K3 GEMM M={m}: max err {rel} of the largest value > {GRAD_REL_TOL}")
+    gemm_ms = time_ms(lambda: gemm_bf16_mn(x16, gm16, k, n), 20)
+    bound_ms, bound_by = _bound(2 * m * (kpad + npad) + 4 * k * n, 2 * m * k * n, BF16_TENSOR_FLOPS)
+    row = {
+        "shape": f"M={m},K={k},N={n}",
+        "max_abs_err": float((got - want).abs().max()),
+        "rel_err": rel,
+        "tol": f"{GRAD_REL_TOL} of max |plain|",
+        "ms": gemm_ms,
+        "plain_ms": time_ms(lambda: gemm_bf16_mn_reference(x16, gm16, k, n), 3),
+        # cuBLAS on the same bf16 operands, f32 out: the same function.
+        "library_ms": time_ms(lambda: torch.mm(x16.t(), gm16, out_dtype=torch.float32), 20),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "tflops": 2 * m * k * n / gemm_ms / 1e9,
+    }
+    print(f"[K3 gemm_bf16_mn] {json.dumps(row)}", flush=True)
+    mn_rows.append(row)
+    del got, want
+    return {
+        "prep_ms": time_ms(lambda: (round_bf16(x), round_bf16(cot, out)), 10),
+        "gemm_ms": gemm_ms,
+        "gemm_tflops": row["tflops"],
+        "library_with_casts_ms": time_ms(lambda: torch.mm(
+            x.to(torch.bfloat16).t(), torch.where(clamp_mask(out), cot, 0.0).to(torch.bfloat16),
+            out_dtype=torch.float32), 10),
+    }
+
+
 def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], ...]:
     """K2 (dX) and K3 (dW) vs their plain versions at the training path's
-    row counts (the batch of 1024, and a ragged 200), and K2's two kernels
-    (operand pass, GEMM) alone on K2's inputs."""
+    row counts (the batch of 1024, and a ragged 200), and the kernels of
+    each (operand pass, GEMM) alone on its inputs."""
     from ai_font_renderer_tpu_torch.ops.fused_output import (
         fused_output_dw,
         fused_output_dw_reference,
@@ -317,7 +392,7 @@ def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], ..
     w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) * bound
     b = (torch.rand(n, generator=g, device="cuda") * 2 - 1) * bound
     w16 = w.to(torch.bfloat16)
-    dx_rows, dw_rows, round_rows, gemm_rows = [], [], [], []
+    dx_rows, dw_rows, round_rows, gemm_rows, mn_rows = [], [], [], [], []
     for m in ms_list:
         x = torch.relu(torch.randn(m, k, generator=g, device="cuda"))
         out = fused_output_reference(x, w, b)
@@ -352,9 +427,11 @@ def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], ..
             del got, want
             if rows is dx_rows:
                 row.update(_k2_parts(cot, out, w, m, k, n, round_rows, gemm_rows))
+            else:
+                row.update(_k3_parts(x, cot, out, m, k, n, round_rows, mn_rows))
             print(f"[{name}] {json.dumps(row)}", flush=True)
             rows.append(row)
-    return dx_rows, dw_rows, round_rows, gemm_rows
+    return dx_rows, dw_rows, round_rows, gemm_rows, mn_rows
 
 
 def check_dw_adamw(ms_list=(200, 1024), k=6400, n=19200) -> list[dict]:
@@ -747,6 +824,7 @@ def _kernel_fns():
         "round_bf16": ops.round_bf16,
         "gemm_bf16_tn": ops.gemm_bf16_tn,
         "fused_output_dw": ops.fused_output_dw,
+        "gemm_bf16_mn": ops.gemm_bf16_mn,
         "fused_dw_adamw": ops.fused_dw_adamw,
         "fused_attention_backward": ops.fused_attention_backward,
         "fused_attention2_backward": ops.fused_attention2_backward,
@@ -943,6 +1021,42 @@ def _steps_per_s(state, ds, batch_idx, mcfg, tcfg, steps: int = 8) -> float:
     return steps / (time.perf_counter() - t0)
 
 
+def step_memory() -> int:
+    """``--step-memory``: torch.cuda.max_memory_allocated over one
+    full-width training step at batch 1024 (after a warm one) in the plain,
+    ``output`` and ``fused`` configurations, weights from a seed and a
+    random batch (no corpus), so the figure is the model, its state and the
+    step alone."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig, replace
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    print(_nvidia_smi(), flush=True)
+    base = ModelConfig(use_pallas_output=True)
+    params = font_renderer.init(torch.Generator(device="cuda").manual_seed(0), base, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    codes = torch.randint(32, 127, (1024, base.max_length), generator=gen, device="cuda", dtype=torch.int32)
+    targets = torch.rand(1024, base.sheet_height, base.sheet_width, generator=gen, device="cuda")
+    peaks = {}
+    for name, mcfg, tcfg in (("plain", replace(base, use_pallas_output=False), TrainConfig()),
+                             ("output", base, TrainConfig()),
+                             ("fused", base, TrainConfig(fused_dw_adamw=True))):
+        state = state_from_params(params, tcfg)
+        train_step(state, codes, targets, 1e-3, gen, mcfg, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_step(state, codes, targets, 1e-3, gen, mcfg, tcfg)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+        del state
+    print(f"[step memory] peak MiB of one step at batch 1024: {json.dumps(peaks)}", flush=True)
+    return 0
+
+
 def _profile_step(state, ds, idx, mcfg, tcfg, name: str) -> None:
     """One training step under torch.profiler: wall time, device kernel
     time, busy share, and the kernels that take the most device time."""
@@ -1069,7 +1183,8 @@ def phase_train(workdir: str, card: str) -> dict:
             if run_counts[kernel] <= 0:
                 raise AssertionError(f"train {name} never launched {kernel}: {run_counts}")
         results[name] = res
-    for kernel in ("fused_output_dx", "round_bf16", "gemm_bf16_tn", "fused_output_dw", "fused_dw_adamw"):
+    for kernel in ("fused_output_dx", "round_bf16", "gemm_bf16_tn", "fused_output_dw", "gemm_bf16_mn",
+                   "fused_dw_adamw"):
         if counts[kernel] <= 0:
             raise AssertionError(f"training never launched {kernel}: {counts}")
 
@@ -1166,7 +1281,7 @@ def main() -> int:
     attn_rows = timed("check attention", check_fused_attention)
     drop_rows = timed("check attention dropout", check_attention_dropout)
     k6_rows, k8_rows = timed("check K6/K8", check_attention_backward)
-    dx_rows, dw_rows, round_rows, gemm_rows = timed("check K2/K3", check_backward)
+    dx_rows, dw_rows, round_rows, gemm_rows, mn_rows = timed("check K2/K3", check_backward)
     k4_rows = timed("check K4", check_dw_adamw)
     k9_rows = timed("check K9", check_dw_adamw_xt)
 
@@ -1216,7 +1331,7 @@ def main() -> int:
             "M=1024,K=6400,N=19200", launches["fused_output_dx"],
         ),
         _kernel_entry(
-            "round_bf16 (K2 operand pass)", src + "fused_output.cu",
+            "round_bf16 (operand pass of K2 and K3)", src + "fused_output.cu",
             "ai_font_renderer_tpu/ops/fused_output.py:96", round_rows,
             "w K=6400,N=19200", launches["round_bf16"],
         ),
@@ -1229,6 +1344,11 @@ def main() -> int:
             "fused_output_dw", src + "fused_output.cu",
             "ai_font_renderer_tpu/ops/fused_output.py:142", dw_rows,
             "M=1024,K=6400,N=19200", launches["fused_output_dw"],
+        ),
+        _kernel_entry(
+            "gemm_bf16_mn (K3 GEMM)", src + "sm90_gemm.cuh",
+            "ai_font_renderer_tpu/ops/fused_output.py:142", mn_rows,
+            "M=1024,K=6400,N=19200", launches["gemm_bf16_mn"],
         ),
         _kernel_entry(
             "fused_dw_adamw", src + "fused_dw_adamw.cu",
@@ -1257,4 +1377,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(step_memory() if sys.argv[1:] == ["--step-memory"] else main())

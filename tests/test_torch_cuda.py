@@ -29,6 +29,8 @@ from ai_font_renderer_tpu_torch.ops import (
     fused_output_dx,
     fused_output_dx_reference,
     fused_output_reference,
+    gemm_bf16_mn,
+    gemm_bf16_mn_reference,
     gemm_bf16_tn,
     gemm_bf16_tn_reference,
     round_bf16,
@@ -214,13 +216,75 @@ def test_k2_wrappers_refuse_what_they_cannot_take(cuda):
         round_bf16(a)
 
 
+def _k3_counts():
+    return fused_output_dw.launches, round_bf16.launches, gemm_bf16_mn.launches
+
+
+@pytest.mark.parametrize("m,k,n", K2_SHAPES)
+def test_k3_two_pass_matches_plain(cuda, m, k, n):
+    """K3 on the card is one operand pass for x, one for the masked g and
+    one MN-major GEMM; within 1e-4 of the plain version's largest value
+    (f32 sums of exact bf16 products, in another order)."""
+    x, w, out, g = _backward_inputs(m, k, n, cuda)
+    before = _k3_counts()
+    dw = fused_output_dw(x, g, out)
+    assert _k3_counts() == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert dw.shape == (k, n) and dw.dtype == torch.float32
+    assert _rel_err(dw, fused_output_dw_reference(x, g, out)) <= 1e-4
+
+
+@pytest.mark.parametrize("m,k,width", [(1, 8, 8), (37, 208, 304), (200, 256, 384), (513, 400, 136),
+                                       (200, 6400, 19200), (1024, 6400, 19200)])
+def test_gemm_bf16_mn_matches_f32_product(cuda, m, k, width):
+    """The MN-major GEMM alone on bf16 operands a [M, K], b [M, N] against
+    the f32 product a^T b of the same values, to 1e-4 of its largest value
+    (exact products, f32 sums in another order); and cut to [k - 5, N - 3],
+    which the kernel's stores clip at the edge."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    a = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(m, width, generator=gen, device=cuda).to(torch.bfloat16)
+    before = gemm_bf16_mn.launches
+    got = gemm_bf16_mn(a, b)
+    assert gemm_bf16_mn.launches == before + 1
+    assert got.shape == (k, width)
+    assert _rel_err(got, gemm_bf16_mn_reference(a, b)) <= 1e-4
+    cut = gemm_bf16_mn(a, b, k - 5, width - 3)
+    assert cut.shape == (k - 5, width - 3)
+    assert torch.equal(cut, got[: k - 5, : width - 3])
+
+
+def test_k3_wrappers_refuse_what_they_cannot_take(cuda):
+    a = torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple"):
+        gemm_bf16_mn(torch.zeros(4, 12, device=cuda, dtype=torch.bfloat16), a)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gemm_bf16_mn(a.float(), a.float())
+    with pytest.raises(ValueError, match="one depth"):
+        gemm_bf16_mn(a, torch.zeros(5, 16, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="k <= Ka"):
+        gemm_bf16_mn(a, a, 17, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm_bf16_mn(torch.zeros(16, 4, device=cuda, dtype=torch.bfloat16).T, a)
+    x, _, out, g = _backward_inputs(8, 16, 24, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fused_output_dw(x.half(), g, out)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fused_output_dw(x, g, out[:, :8].contiguous())
+
+
 def test_autograd_function_launches_the_backward_kernels(cuda):
+    """One backward with all three gradients: one K2 and one K3 call, the
+    operand pass three times (gm16, shared by both, w16 and x16), each GEMM
+    once."""
     x, w, b = _output_inputs(70, 256, 384, cuda)
     x, w, b = (t.clone().requires_grad_() for t in (x, w, b))
     before = (fused_output.launches, fused_output_dx.launches, fused_output_dw.launches)
+    parts = (round_bf16.launches, gemm_bf16_tn.launches, gemm_bf16_mn.launches)
     fused_output(x, w, b).square().sum().backward()
     after = (fused_output.launches, fused_output_dx.launches, fused_output_dw.launches)
     assert after == tuple(c + 1 for c in before)
+    assert (round_bf16.launches, gemm_bf16_tn.launches, gemm_bf16_mn.launches) == (
+        parts[0] + 3, parts[1] + 1, parts[2] + 1)
     out = fused_output_reference(x.detach(), w.detach(), b.detach())
     g = 2 * out
     assert _rel_err(x.grad, fused_output_dx_reference(g, out, w.detach())) <= 1e-4
