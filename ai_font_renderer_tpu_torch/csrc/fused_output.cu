@@ -3,24 +3,37 @@
 //
 // K1, forward: replaces the TPU kernel ai_font_renderer_tpu/ops/
 // fused_output.py:_fwd_kernel. x [M, K] f32, W [K, N] f32, b [N] f32 ->
-// out [M, N] f32. Each tile of x and W is rounded to bf16 (round to nearest
-// even) on its way into shared memory, as the TPU kernel casts its blocks;
-// the products run on the tensor cores through WMMA (bf16 x bf16, f32
-// accumulation), and bias + clamp run in the epilogue, so the pre-activation
-// sheet never reaches device memory.
+// out [M, N] f32, at the model's K = 6400, N = 19200.
 //
-// What bounds K1 on an H100 (at the model's K = 6400, N = 19200):
-//   * small M (15 test strings, a 64-row server batch): reading the f32 W,
-//     491.5 MB, from device memory. Nothing else comes close, so the kernel
-//     is memory-bound there. Storing W in bf16 for serving would halve
-//     those bytes; that is a later lever and changes no arithmetic.
+// What bounds K1 on an H100:
+//   * small M (15 test strings, a 64-row server batch): reading W. In f32
+//     that is 491.5 MB, 0.147 ms at 3.35 TB/s; the bf16 shadow of W that
+//     the wrapper keeps while W does not change (ops/fused_output.py,
+//     bf16_shadow) is 245.8 MB, 0.073 ms.
 //   * large M (a 1024-row atlas chunk): 2*M*K*N = 251.7 GFLOP of bf16
-//     tensor-core work, compute-bound.
-// The design is the simple one: 64 x 128 output tiles, 8 warps of 32 x 32,
-// a 32-deep K step whose next tiles are fetched into registers while the
-// current ones multiply. Blocks walk M fastest, so the blocks that share a
-// column strip of W run together and read it from L2 rather than memory.
-// wgmma, TMA and a persistent schedule are later work.
+//     tensor-core work, 0.254 ms at 989 TFLOP/s.
+// The first design was a WMMA kernel with 64 x 128 tiles that read x and W
+// in f32 through registers and rounded them on their way into shared
+// memory: at M = 1024 its 2,400 blocks brought about 11.8 GB from L2 into
+// the SMs, what the L2 delivers in its 2.04 ms, and at M <= 64 its 150
+// blocks read the f32 W with one register stage in flight (0.23 ms). The
+// redesign is K2's and K3's split:
+//   * afr_round_bf16 for x16 [M, Kp] = bf16_rn(x); W's operand, w16
+//     [K, Np] = bf16_rn(W), is the shadow, built by the same pass only when
+//     W has changed;
+//   * afr_gemm_bf16_bias_clamp, out = clamp(x16 . w16 + b), the TMA + wgmma
+//     GEMM of sm90_gemm.cuh with A K-major and B MN-major (W as it is
+//     stored), 128 x 256 tiles on K3's persistent grid (600 tiles at
+//     M = 1024, 4.5 waves on 132 SMs), bias and clamp before the TMA stores.
+//     At M <= 128 there are only 75 tiles, so 75 SMs stream w16 while 57
+//     idle, each a 3.3 MB strip with four stages of 48 KB in flight. On an
+//     H100 that reads w16 at about 2.7 TB/s, 0.09 ms at M = 64. Split-K was
+//     tried to give every SM a share (S slices of the contraction, S x 75
+//     work units, their f32 partials summed by a second kernel): at M = 15
+//     and 64, 2, 4 and 8 slices were no faster than one and at M = 64 up to
+//     37% slower (the partials, 19.7 MB written and read at M = 64 in four
+//     slices, one more launch, and a pipeline to fill for every unit), so
+//     the GEMM contracts in one slice at every M.
 //
 // K2, dX = bf16(g * mask) @ bf16(W)^T: replaces the TPU kernel
 // ai_font_renderer_tpu/ops/fused_output.py:_dx_kernel. g and out are [M, N]
@@ -40,6 +53,9 @@
 //     stores): gm16 [M, Np] = bf16_rn(g where 0 < out < 1 else 0) and
 //     w16 [K, Np] = bf16_rn(W), Np = N rounded up to a multiple of 8 (TMA
 //     wants 16-byte row strides), pad columns zero. 934 MB at M = 1024.
+//     Since K1's redesign w16 is W's bf16 shadow, which K1 and K2 share and
+//     which is rebuilt only when W changes: K2's own pass moves gm16's
+//     bytes alone.
 //   * afr_gemm_bf16_tn, dX = gm16 . w16^T, the TMA + wgmma GEMM of
 //     sm90_gemm.cuh: tiles of 128 rows by 200 columns (two full waves of
 //     256 blocks on 132 SMs at M = 1024) from a ring of swizzled stages,
@@ -73,139 +89,14 @@
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 #include "sm90_gemm.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
-constexpr int A_LD = BK + 8;  // bf16 elements; the pad breaks bank conflicts
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;  // floats
-constexpr int A_VECS = BM * BK / 4 / THREADS;  // float4 per thread: 2
-constexpr int B_VECS = BK * BN / 4 / THREADS;  // float4 per thread: 4
-
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, size_t row_off,
-                                        int col, int row_ok, int ncols, int vec) {
-  if (!row_ok) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* q = p + row_off + col;
-  if (vec && col + 3 < ncols) return *reinterpret_cast<const float4*>(q);
-  float4 r;
-  r.x = col + 0 < ncols ? q[0] : 0.f;
-  r.y = col + 1 < ncols ? q[1] : 0.f;
-  r.z = col + 2 < ncols ? q[2] : 0.f;
-  r.w = col + 3 < ncols ? q[3] : 0.f;
-  return r;
-}
-
-__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {
-  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(v.x, v.y);
-  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(v.z, v.w);
-}
-
-__global__ void __launch_bounds__(THREADS)
-fused_output_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                        const float* __restrict__ b, float* __restrict__ out,
-                        int M, int K, int N, int vec) {
-  __shared__ __align__(32) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(32) float Cs[BM * C_LD];
-
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4;  // 2 x 4 warps, each a 32 x 32 piece of the tile
-  const int wn = warp % 4;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  float4 ra[A_VECS];
-  float4 rb[B_VECS];
-
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      const int r = f / (BK / 4);
-      const int c = (f % (BK / 4)) * 4;
-      ra[i] = load4(x, (size_t)(m0 + r) * K, k0 + c, m0 + r < M, K, vec);
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      const int r = f / (BN / 4);
-      const int c = (f % (BN / 4)) * 4;
-      rb[i] = load4(w, (size_t)(k0 + r) * N, n0 + c, k0 + r < K, N, vec);
-    }
-  };
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      store_bf16x4(&As[(f / (BK / 4)) * A_LD + (f % (BK / 4)) * 4], ra[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      store_bf16x4(&Bs[(f / (BN / 4)) * B_LD + (f % (BN / 4)) * 4], rb[i]);
-    }
-    __syncthreads();
-    if (k0 + BK < K) fetch(k0 + BK);  // in flight while the tensor cores work
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[(wm * 32 + i * 16) * A_LD + kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * B_LD + wn * 32 + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * C_LD + wn * 32 + j * 16],
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int idx = tid; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN;
-    const int c = idx % BN;
-    const int gm = m0 + r;
-    const int gn = n0 + c;
-    if (gm < M && gn < N) {
-      const float z = Cs[r * C_LD + c] + b[gn];
-      out[(size_t)gm * N + gn] = fminf(fmaxf(z, 0.f), 1.f);
-    }
-  }
-}
-
-// The operand pass of K2 and K3: dst[r, c] = bf16_rn(mask ? src[r, c] : 0)
+// The operand pass of K1, K2 and K3: dst[r, c] = bf16_rn(mask ? src[r, c] : 0)
 // for c < cols and 0 for cols <= c < ldd, mask = 0 < out[r, c] < 1 where
 // `out` is given and true where it is null. One thread makes 8 outputs, one
 // 16-byte store; `vec` (cols == ldd, 16-byte aligned rows) takes 16-byte
@@ -263,17 +154,6 @@ static int aligned16(const void* a, const void* b, const void* c) {
 
 // Each entry point launches on `stream` (PyTorch's current stream) and
 // returns cudaGetLastError(): 0 when the launch was accepted.
-extern "C" int afr_fused_output_fwd(const float* x, const float* w, const float* b,
-                                    float* out, int M, int K, int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
-  const int vec = (K % 4 == 0) && (N % 4 == 0) &&
-                  ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 == 0);
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  fused_output_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, b, out, M, K, N, vec);
-  return (int)cudaGetLastError();
-}
 
 // The operand pass: src (and out, or null) [rows, cols] f32 contiguous ->
 // dst [rows, ldd] bf16, ldd a multiple of 8 and >= cols.
@@ -314,8 +194,13 @@ extern "C" int afr_gemm_bf16_tn_attrs(int* out) {
 }
 
 extern "C" int afr_gemm_bf16_mn_attrs(int* out) {
-  return gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_mn_kernel), sm90::MN_SMEM,
-                    sm90::MN_STAGES, sm90::MN_BM, sm90::MN_BN, out);
+  return gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_bmn_kernel<false>),
+                    sm90::MN_SMEM, sm90::MN_STAGES, sm90::MN_BM, sm90::MN_BN, out);
+}
+
+extern "C" int afr_gemm_bf16_bias_clamp_attrs(int* out) {
+  return gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_bmn_kernel<true>),
+                    sm90::K1_SMEM, sm90::MN_STAGES, sm90::MN_BM, sm90::MN_BN, out);
 }
 
 // 0 when a GEMM was built with the registers that setmaxnreg's request
@@ -357,6 +242,27 @@ extern "C" int afr_gemm_bf16_tn(const void* a, const void* b, float* c, int M, i
   return (int)cudaGetLastError();
 }
 
+// gemm_bf16_bmn_kernel<K1> over C [R, N] and the contraction L, on a
+// persistent grid of at most one block an SM.
+template <bool K1>
+static int launch_bmn(const CUtensorMap& map_a, const CUtensorMap& map_b, const CUtensorMap& map_c,
+                      const float* bias, int R, int N, int L, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(sm90::gemm_bf16_bmn_kernel<K1>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((R + sm90::MN_BM - 1) / sm90::MN_BM) *
+                          ((N + sm90::MN_BN - 1) / sm90::MN_BN);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  sm90::gemm_bf16_bmn_kernel<K1><<<grid, sm90::GEMM_THREADS, smem, stream>>>(
+      map_a, map_b, map_c, bias, R, N, L);
+  return (int)cudaGetLastError();
+}
+
 // K3's product: c [K, N] f32 (row stride ldc, a multiple of 4, >= N) =
 // a[:, :K]^T . b[:, :N], a [M, lda] and b [M, ldb] bf16 (row strides
 // multiples of 8, lda >= K, ldb >= N), all 16-byte aligned; tiles of
@@ -377,19 +283,31 @@ extern "C" int afr_gemm_bf16_mn(const void* a, const void* b, float* c, int M, i
   if (rc != 0) return 1000 + rc;
   rc = sm90::encode_f32_store_map(&map_c, c, K, N, ldc);
   if (rc != 0) return 1000 + rc;
-  cudaError_t err = cudaFuncSetAttribute(sm90::gemm_bf16_mn_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         sm90::MN_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles =
-      (long long)((K + sm90::MN_BM - 1) / sm90::MN_BM) * ((N + sm90::MN_BN - 1) / sm90::MN_BN);
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  sm90::gemm_bf16_mn_kernel<<<grid, sm90::GEMM_THREADS, sm90::MN_SMEM,
-                              static_cast<cudaStream_t>(stream)>>>(map_a, map_b, map_c, M, K, N);
-  return (int)cudaGetLastError();
+  return launch_bmn<false>(map_a, map_b, map_c, nullptr, K, N, M, sm90::MN_SMEM,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K1's product: c [M, N] f32 (row stride ldc, a multiple of 4, >= N) =
+// clamp(a[:, :K] . b[:, :N] + bias, 0, 1), a [M, lda] and b [K, ldb] bf16
+// (row strides multiples of 8, lda >= K, ldb >= N), bias [N] f32, a, b and
+// c 16-byte aligned. Errors as for afr_gemm_bf16_tn.
+extern "C" int afr_gemm_bf16_bias_clamp(const void* a, const void* b, const float* bias, float* c,
+                                        int M, int K, int N, int lda, int ldb, int ldc,
+                                        void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || lda < K || ldb < N || ldc < N || lda % 8 != 0 ||
+      ldb % 8 != 0 || ldc % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(a, b, c) || reinterpret_cast<uintptr_t>(bias) % 4 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  static const int regs_rc = launch_regs_ok(afr_gemm_bf16_bias_clamp_attrs);
+  if (regs_rc != 0) return regs_rc;
+  CUtensorMap map_a, map_b, map_c;
+  int rc = sm90::encode_bf16_map(&map_a, a, M, K, lda, sm90::MN_BM);
+  if (rc != 0) return 1000 + rc;
+  rc = sm90::encode_bf16_map(&map_b, b, K, N, ldb, sm90::BK);
+  if (rc != 0) return 1000 + rc;
+  rc = sm90::encode_f32_store_map(&map_c, c, M, N, ldc);
+  if (rc != 0) return 1000 + rc;
+  return launch_bmn<true>(map_a, map_b, map_c, bias, M, N, K, sm90::K1_SMEM,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-// Two bf16 x bf16 -> f32 GEMMs for sm_90a, built from the same pieces: TMA
+// Three bf16 x bf16 -> f32 GEMMs for sm_90a, built from the same pieces: TMA
 // loads with the 128-byte swizzle into a ring of stages in dynamic shared
 // memory, a full and an empty mbarrier a stage, one producer warp and two
 // consumer warpgroups that run wgmma, and a barrier wait that traps after
@@ -8,7 +8,7 @@
 // A[M, N] . B[K, N]^T, both operands contiguous along the contraction axis
 // ("TN", the K-major no-transpose case of wgmma).
 //
-// gemm_bf16_mn_kernel is K3's product, dW = x16^T . gm16: C[K, N] =
+// gemm_bf16_bmn_kernel<false> is K3's product, dW = x16^T . gm16: C[K, N] =
 // A[M, K]^T . B[M, N], both operands contiguous along the output axes
 // ("MN-major", wgmma's two transpose bits set). Its design follows the TN
 // kernel's below, with four differences: tiles of 128 x 256 (m64n256k16,
@@ -17,6 +17,12 @@
 // from shared memory (see its own note further down). It contracts over
 // the batch, only 16 k-blocks at M = 1024, and writes a 491.5 MB dW, so
 // the epilogue matters as it does not for K2.
+//
+// gemm_bf16_bmn_kernel<true> is K1's product, out = clamp(x16 . w16 + b,
+// 0, 1): C[M, N] = A[M, K] . B[K, N] with A K-major (the TN kernel's A
+// side: one 128 x 64 box a stage, K-major descriptors, transpose bit 0) and
+// B MN-major (K3's B side: W as it is stored, transpose bit 1); bias and
+// clamp in the epilogue, before the TMA stores.
 //
 // TN design (one output tile of 128 x 200 per block, not persistent):
 //   * TMA 2-D tiled loads with the 128-byte swizzle fill a ring of five
@@ -275,9 +281,11 @@ __device__ __forceinline__ uint64_t sw128_mn_desc(const void* p, uint32_t atom_s
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// d += A(64 x 16, desc a) . B(16 x 256, desc b), both MN-major (scale-d 1,
-// imm-trans-a = imm-trans-b = 1); d holds 128 floats a thread.
-__device__ __forceinline__ void wgmma_m64n256k16_mn(float (&d)[128], uint64_t a, uint64_t b) {
+// d += A(64 x 16, desc a) . B(16 x 256, desc b), B MN-major (imm-trans-b 1)
+// and A MN-major for TRANS_A 1, K-major for 0 (scale-d 1); d holds 128
+// floats a thread.
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -289,7 +297,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_mn(float (&d)[128], uint64_t a,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, 1, 1, 1, 1, 1;\n"
+      "}, %128, %129, 1, 1, 1, %130, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -313,7 +321,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_mn(float (&d)[128], uint64_t a,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b));
+      : "l"(a), "l"(b), "n"(TRANS_A));
 }
 
 // TMA store of the box at (col, row) of `map` from shared memory, in the
@@ -347,13 +355,15 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 }
 
 // The MN GEMM's tile: 128 rows of C (64 for each consumer warpgroup) by 256
-// columns, 50 x 75 = 3,750 tiles at K = 6400, N = 19200. A stage is 64
-// contraction rows deep: two 64 x 64 boxes of A and four of B, 8 KB each
-// (64 rows of one 128-byte swizzled row), 48 KB in all; four stages fill
-// 192 KB. Each consumer warpgroup has two epilogue buffers of 64 rows x 32
-// floats (8 KB, 128-byte swizzle), 32 KB in all. One block an SM, as for
-// the TN kernel, with the same register split (setmaxnreg 40 / 232, 168 at
-// launch).
+// columns, 50 x 75 = 3,750 tiles of K3's dW at K = 6400, N = 19200, and
+// 8 x 75 = 600 tiles of K1's output at a batch of 1024. A stage is 64
+// contraction rows deep: A's 16 KB (two 64 x 64 boxes when A is MN-major,
+// one 128 x 64 box when it is K-major) and four 64 x 64 boxes of B, 8 KB
+// each (64 rows of one 128-byte swizzled row), 48 KB in all; four stages
+// fill 192 KB. Each consumer warpgroup has two epilogue buffers of 64 rows x
+// 32 floats (8 KB, 128-byte swizzle), 32 KB in all; K1 adds 1 KB for the
+// tile's bias. One block an SM, as for the TN kernel, with the same register
+// split (setmaxnreg 40 / 232, 168 at launch).
 constexpr int MN_BM = 128;
 constexpr int MN_BN = 256;
 constexpr int MN_BOX_BYTES = BK * TILE_BYTES_PER_ROW;  // 8 KB
@@ -365,13 +375,21 @@ constexpr int MN_EPI_COLS = 32;                     // floats in one 128-byte ro
 constexpr int MN_EPI_BYTES = 64 * MN_EPI_COLS * 4;  // 8 KB
 constexpr int MN_RING_BYTES = MN_STAGES * MN_STAGE_BYTES;
 constexpr int MN_SMEM = MN_RING_BYTES + 4 * MN_EPI_BYTES + 2 * MN_STAGES * 8 + 1024;
-static_assert(MN_SMEM <= 227 * 1024, "the ring must fit an SM's shared memory");
+constexpr int K1_BIAS_BYTES = MN_BN * 4;
+constexpr int K1_SMEM = MN_SMEM + K1_BIAS_BYTES;
+static_assert(K1_SMEM <= 227 * 1024, "the ring must fit an SM's shared memory");
 // A k16 step: 16 contraction rows of 128 bytes, in descriptor units (>> 4).
 constexpr int MN_K16_STEP = 16 * TILE_BYTES_PER_ROW >> 4;
+// A k16 step of a K-major operand: 32 bytes inside the swizzled row.
+constexpr int KMAJOR_K16_STEP = 32 >> 4;
 
-// C[K, N] = A[M, K]^T . B[M, N]; the maps give A and B as bf16 with boxes
-// of 64 columns by 64 rows, and C as f32 with boxes of 32 columns by 64
-// rows, all with the 128-byte swizzle.
+// C[R, N] = A . B[L, N] over the contraction L, B MN-major:
+//   * K3 (K1 = false): A [L, R] MN-major, C = A^T . B, dW = x16^T . gm16;
+//   * K1 (K1 = true): A [R, L] K-major, C = A . B, out = x16 . w16, and the
+//     epilogue adds bias (N f32) and clamps to [0, 1].
+// The maps give A and B as bf16 with boxes of 64 columns by 64 rows (A
+// K-major: by 128 rows), and C as f32 with boxes of 32 columns by 64 rows,
+// all with the 128-byte swizzle.
 //
 // Persistent schedule: the grid is at most one block an SM, and block b
 // takes tiles b, b + gridDim.x, ..., rows of C fastest, so the blocks that
@@ -380,30 +398,38 @@ constexpr int MN_K16_STEP = 16 * TILE_BYTES_PER_ROW >> 4;
 // and parity come from that running count: the producer runs on through
 // the ring into the next tile while the consumers store the last one.
 // Within a tile a consumer frees stage it - 1 after wait_group 1, and the
-// tile's last stage after wait_group 0, before its stores.
+// tile's last stage after wait_group 0, before its stores. A warpgroup
+// whose 64 rows lie wholly past R (in K1, the second one at a batch of 64
+// rows or fewer) multiplies nothing: it frees each stage as soon as it has landed.
 //
 // Epilogue: a warpgroup's 64 x 256 accumulators leave in eight chunks of 32
 // columns, each written to one of its two epilogue buffers and sent by one
-// TMA store, which clips at the K and N edges. The stores drain while the
-// next tile multiplies: a tile's 128 KB of dW is about 5 us of an SM's
+// TMA store, which clips at the R and N edges. The stores drain while the
+// next tile multiplies: a tile's 128 KB of f32 is about 5 us of an SM's
 // share of device memory, which stores from registers made the consumers
 // wait out. One thread of each warpgroup issues its stores and, before a
 // buffer is written again, waits until the store that last read it is done
-// reading.
+// reading. K1's bias: both consumer warpgroups copy the tile's 256 values
+// into shared memory between two barriers over their 256 threads; the first
+// also ensures that neither still reads the last tile's copy.
+template <bool K1>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
-gemm_bf16_mn_kernel(const __grid_constant__ CUtensorMap map_a,
-                    const __grid_constant__ CUtensorMap map_b,
-                    const __grid_constant__ CUtensorMap map_c, int M, int K, int N) {
+gemm_bf16_bmn_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const __grid_constant__ CUtensorMap map_c, const float* __restrict__ bias,
+                     int R, int N, int L) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* epi = smem + MN_RING_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(epi + 4 * MN_EPI_BYTES);
+  float* bias_s = reinterpret_cast<float*>(epi + 4 * MN_EPI_BYTES);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(epi + 4 * MN_EPI_BYTES + (K1 ? K1_BIAS_BYTES : 0));
   uint64_t* empty = full + MN_STAGES;
 
-  const int row_tiles = (K + MN_BM - 1) / MN_BM;
+  const int row_tiles = (R + MN_BM - 1) / MN_BM;
   const int tiles = row_tiles * ((N + MN_BN - 1) / MN_BN);
-  const int k_blocks = (M + BK - 1) / BK;
+  const int k_blocks = (L + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -427,9 +453,13 @@ gemm_bf16_mn_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_wait(&empty[s], ((it / MN_STAGES) & 1) ^ 1);  // round 0 passes at once
           unsigned char* st = smem + s * MN_STAGE_BYTES;
           mbar_expect_tx(&full[s], MN_STAGE_BYTES);  // full boxes, even out of bounds
+          if constexpr (K1) {
+            tma_load_2d(st, &map_a, &full[s], i * BK, r0);
+          } else {
 #pragma unroll
-          for (int j = 0; j < MN_BM / 64; ++j)
-            tma_load_2d(st + j * MN_BOX_BYTES, &map_a, &full[s], r0 + 64 * j, i * BK);
+            for (int j = 0; j < MN_BM / 64; ++j)
+              tma_load_2d(st + j * MN_BOX_BYTES, &map_a, &full[s], r0 + 64 * j, i * BK);
+          }
 #pragma unroll
           for (int j = 0; j < MN_BN / 64; ++j)
             tma_load_2d(st + MN_A_BYTES + j * MN_BOX_BYTES, &map_b, &full[s], n0 + 64 * j, i * BK);
@@ -447,25 +477,43 @@ gemm_bf16_mn_kernel(const __grid_constant__ CUtensorMap map_a,
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int r0 = (t % row_tiles) * MN_BM;
       const int n0 = (t / row_tiles) * MN_BN;
+      const bool active = !K1 || r0 + (wg - 1) * 64 < R;
+      if (active) {
 #pragma unroll
-      for (int j = 0; j < MN_BN / 2; ++j) d[j] = 0.f;
-      for (int i = 0; i < k_blocks; ++i, ++it) {
-        const int s = it % MN_STAGES;
-        mbar_wait(&full[s], (it / MN_STAGES) & 1);
-        const unsigned char* st = smem + s * MN_STAGE_BYTES;
-        // This warpgroup's 64 rows of C are the columns of one box of A.
-        const uint64_t da = sw128_mn_desc(st + (wg - 1) * MN_BOX_BYTES, MN_BOX_BYTES);
-        const uint64_t db = sw128_mn_desc(st + MN_A_BYTES, MN_BOX_BYTES);
-        wgmma_fence();
+        for (int j = 0; j < MN_BN / 2; ++j) d[j] = 0.f;
+        for (int i = 0; i < k_blocks; ++i, ++it) {
+          const int s = it % MN_STAGES;
+          mbar_wait(&full[s], (it / MN_STAGES) & 1);
+          const unsigned char* st = smem + s * MN_STAGE_BYTES;
+          // This warpgroup's 64 rows of C: K-major, rows (wg - 1) * 64 of
+          // A's box; MN-major, the columns of one box of A.
+          const uint64_t da = K1 ? sw128_desc(st + (wg - 1) * 64 * TILE_BYTES_PER_ROW)
+                                 : sw128_mn_desc(st + (wg - 1) * MN_BOX_BYTES, MN_BOX_BYTES);
+          const uint64_t db = sw128_mn_desc(st + MN_A_BYTES, MN_BOX_BYTES);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_m64n256k16_mn(d, da + kk * MN_K16_STEP, db + kk * MN_K16_STEP);
-        wgmma_commit();
-        wgmma_wait<1>();  // the group of stage it-1 is done: free that stage
-        if (i > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % MN_STAGES]);
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_m64n256k16<K1 ? 0 : 1>(d, da + kk * (K1 ? KMAJOR_K16_STEP : MN_K16_STEP),
+                                         db + kk * MN_K16_STEP);
+          wgmma_commit();
+          wgmma_wait<1>();  // the group of stage it-1 is done: free that stage
+          if (i > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % MN_STAGES]);
+        }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % MN_STAGES]);
+      } else {
+        for (int i = 0; i < k_blocks; ++i, ++it) {
+          mbar_wait(&full[it % MN_STAGES], (it / MN_STAGES) & 1);
+          if (lane == 0) mbar_arrive(&empty[it % MN_STAGES]);
+        }
       }
-      wgmma_wait<0>();
-      if (lane == 0) mbar_arrive(&empty[(it - 1) % MN_STAGES]);
+      if constexpr (K1) {
+        named_bar_sync(3, 256);
+        const int c = threadIdx.x - 128;
+        bias_s[c] = n0 + c < N ? bias[n0 + c] : 0.f;
+        named_bar_sync(3, 256);
+      }
+      if (!active) continue;
 
       // Accumulator layout as in the TN kernel: register 4j + 2h + c of
       // thread t holds row 16*(t/32) + (t%32)/4 + 8h, column 8j + 2*(t%4) + c.
@@ -482,8 +530,14 @@ gemm_bf16_mn_kernel(const __grid_constant__ CUtensorMap map_a,
           for (int jj = 0; jj < MN_EPI_COLS / 8; ++jj) {
             const int j = q * (MN_EPI_COLS / 8) + jj;
             const int chunk = (2 * jj + (lane % 4) / 2) ^ (r % 8);
+            float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+            if constexpr (K1) {
+              const int col = 8 * j + 2 * (lane % 4);
+              v0 = fminf(fmaxf(v0 + bias_s[col], 0.f), 1.f);
+              v1 = fminf(fmaxf(v1 + bias_s[col + 1], 0.f), 1.f);
+            }
             *reinterpret_cast<float2*>(buf + r * 128 + chunk * 16 + (lane % 2) * 8) =
-                make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+                make_float2(v0, v1);
           }
         }
         fence_proxy_async();

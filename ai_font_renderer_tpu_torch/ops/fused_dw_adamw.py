@@ -8,6 +8,9 @@ _kernel (K4): the output projection's gradient is summed tile by tile and
 each tile updates the same tiles of w, mu and nu at once, so the 491.5 MB
 f32 gradient never reaches device memory. w, mu and nu are updated IN PLACE
 (the JAX kernel aliases them to its outputs); the function returns them.
+The kernel writes them behind PyTorch's back, so each launch bumps their
+autograd version counters as an in-place op would: that is how W's bf16
+shadow (ops/fused_output.py, ``bf16_shadow``) sees that W has changed.
 
 The update is optax's AdamW as the JAX kernel writes it, in f32:
 
@@ -134,6 +137,7 @@ def _launch(entry, x, gm, w, mu, nu, lr, wd, b1, b2, count, eps, transposed):
         )
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    torch.autograd.graph.increment_version((w, mu, nu))
 
 
 fused_dw_adamw.launches = 0

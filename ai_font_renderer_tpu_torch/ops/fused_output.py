@@ -7,11 +7,14 @@ every shape, or raises; it takes its plain version only for tensors on the
 CPU. The kernels replace the TPU kernels of ai_font_renderer_tpu/ops/
 fused_output.py:
 
-* ``fused_output_fwd`` -- K1, ``_fwd_kernel``: clamp(bf16(x) @ bf16(w) + b);
+* ``fused_output_fwd`` -- K1, ``_fwd_kernel``: clamp(bf16(x) @ bf16(w) + b),
+  in two kernels: ``round_bf16`` for x, then ``gemm_bf16_bias_clamp``, the
+  TMA + wgmma product of csrc/sm90_gemm.cuh with bias and clamp in its
+  epilogue, on w's bf16 shadow;
 * ``fused_output_dx`` -- K2, ``_dx_kernel``: bf16(g * mask) @ bf16(w)^T, in
-  two kernels: ``round_bf16``, the operand pass that masks and rounds g and
-  rounds w to bf16 rows padded to a multiple of 8, then ``gemm_bf16_tn``,
-  the TMA + wgmma product of csrc/sm90_gemm.cuh;
+  two kernels: ``round_bf16``, the operand pass that masks and rounds g to
+  bf16 rows padded to a multiple of 8, then ``gemm_bf16_tn``, the TMA +
+  wgmma product of csrc/sm90_gemm.cuh, on w's bf16 shadow;
 * ``fused_output_dw`` -- K3, ``_dw_kernel``: bf16(x)^T @ bf16(g * mask), in
   two kernels: ``round_bf16`` for x and for the masked g, then
   ``gemm_bf16_mn``, the TMA + wgmma product on MN-major operands;
@@ -19,17 +22,25 @@ fused_output.py:
 with mask = 0 < out < 1: the clamp passes a gradient only strictly inside
 its bounds (torch.clamp's own backward also passes it at the bounds).
 ``fused_output`` is the entry point, :class:`FusedOutputFunction`: K1
-forward, K2 and K3 backward, db = sum(g * mask) in PyTorch. Its backward
-forms the masked cotangent gm16 once and hands it to both GEMMs. Unlike the
-TPU path, which runs its kernels only when M, K and N are multiples of 128
-and otherwise falls back to plain ops, the CUDA kernels mask the ragged
-edge.
+forward, K2 and K3 backward, db = sum(g * mask) in PyTorch. Its forward
+keeps x16 and w16 for the backward, which forms the masked cotangent gm16
+once and hands it to both GEMMs. Unlike the TPU path, which runs its
+kernels only when M, K and N are multiples of 128 and otherwise falls back
+to plain ops, the CUDA kernels mask the ragged edge.
+
+W's bf16 shadow (``bf16_shadow``): K1 and K2 read W as bf16 rows padded to
+a multiple of 8, the operand pass's output. The pass runs again only when W
+has changed since the last call (its autograd version counter moved, or it
+is another tensor): once a training step, once in all for render and serve.
 
 Launch counts: K1's on ``fused_output.launches``, K2's and K3's on
-``fused_output_dx.launches`` and ``fused_output_dw.launches`` (one a call,
-the backward's included); the operand pass on ``round_bf16.launches`` (two
-a K2 or K3 call, three a backward with all three gradients) and the GEMMs
-on ``gemm_bf16_tn.launches`` and ``gemm_bf16_mn.launches``.
+``fused_output_dx.launches`` and ``fused_output_dw.launches`` (one a call
+on CUDA tensors, the autograd function's included); the operand pass on
+``round_bf16.launches`` (x16 and, when W has changed, the shadow in a K1
+call; gm16 in K2, x16 and gm16 in K3; three in a forward and backward with a
+new W) and the GEMMs on ``gemm_bf16_bias_clamp.launches``,
+``gemm_bf16_tn.launches`` and ``gemm_bf16_mn.launches``. The shadow counts
+its rebuilds on ``bf16_shadow.builds``.
 """
 
 from __future__ import annotations
@@ -37,18 +48,23 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _build
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "afr_fused_output_fwd": ([_PTR] * 4 + [_INT] * 3 + [_PTR], ctypes.c_int),
     "afr_round_bf16": ([_PTR] * 3 + [_INT] * 3 + [_PTR], ctypes.c_int),
     "afr_gemm_bf16_tn": ([_PTR] * 3 + [_INT] * 4 + [_PTR], ctypes.c_int),
     "afr_gemm_bf16_mn": ([_PTR] * 3 + [_INT] * 6 + [_PTR], ctypes.c_int),
+    "afr_gemm_bf16_bias_clamp": ([_PTR] * 4 + [_INT] * 6 + [_PTR], ctypes.c_int),
     "afr_gemm_bf16_tn_attrs": ([_PTR], ctypes.c_int),
     "afr_gemm_bf16_mn_attrs": ([_PTR], ctypes.c_int),
+    "afr_gemm_bf16_bias_clamp_attrs": ([_PTR], ctypes.c_int),
 }
+# W's bf16 shadows, keyed on W itself (by identity, so an entry dies with its
+# tensor): (W's version when the shadow was built, the shadow).
+_SHADOWS = WeakIdKeyDictionary()
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -110,6 +126,14 @@ def gemm_bf16_mn_reference(a: torch.Tensor, b: torch.Tensor, k: int | None = Non
     return a[:, :k].float().T @ b[:, :n].float()
 
 
+def gemm_bf16_bias_clamp_reference(a: torch.Tensor, w16: torch.Tensor, bias: torch.Tensor,
+                                   n: int | None = None) -> torch.Tensor:
+    """K1's GEMM's plain version: clamp(a[:, :K] @ w16[:, :n] + bias, 0, 1)
+    of bf16 values in f32 (each product is exact in f32), K = w16's rows;
+    n defaults to w16's width."""
+    return (a[:, : w16.shape[0]].float() @ w16[:, :n].float() + bias).clamp(0.0, 1.0)
+
+
 def fused_output_dw_reference(x: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """K3's plain version: bf16(x)^T @ bf16(g * mask) in f32."""
     return _bf16(x).T @ _bf16(torch.where(clamp_mask(out), g, 0.0))
@@ -148,19 +172,59 @@ def _require_cuda(name: str, t: torch.Tensor) -> None:
 
 def fused_output_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K1: clamp(bf16(x) @ bf16(w) + b, 0, 1) in f32, no autograd. x [M, K],
-    w [K, N], b [N], all float32. Counts on ``fused_output.launches``."""
-    if x.device.type == "cpu":
-        return fused_output_reference(x, w, b)
-    _require_cuda("fused_output", x)
+    w [K, N], b [N], all float32. On the card: the operand pass for x, w's
+    bf16 shadow and the GEMM with bias and clamp. Counts on
+    ``fused_output.launches``."""
+    return _k1(x, w, b)[0]
+
+
+def _k1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tuple:
+    """K1 and its operands: (out, x16, w16)."""
     if x.dim() != 2 or w.dim() != 2 or b.dim() != 1:
         raise ValueError(f"expected x [M,K], w [K,N], b [N]; got {x.shape}, {w.shape}, {b.shape}")
     m, k = x.shape
     n = w.shape[1]
-    dev = _check("fused_output", {"x": x, "w": w, "b": b}, {"x": (m, k), "w": (k, n), "b": (n,)})
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if m:
-        _launch(fused_output, "afr_fused_output_fwd", (x, w, b, out), (m, k, n), dev)
-    return out
+    shapes = {"x": (m, k), "w": (k, n), "b": (n,)}
+    if x.device.type != "cpu":
+        _require_cuda("fused_output", x)
+        _check("fused_output", {"x": x, "w": w, "b": b}, shapes)
+    elif (tuple(w.shape), tuple(b.shape)) != (shapes["w"], shapes["b"]):
+        raise ValueError(f"fused_output: shape mismatch, x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"b {tuple(b.shape)}")
+    x16, w16 = round_bf16(x), bf16_shadow(w)
+    # Contiguous also where N is not a multiple of 4: K2 reads out.
+    out = gemm_bf16_bias_clamp(x16, w16, b, n).contiguous()
+    if x.device.type == "cuda" and m:
+        fused_output.launches += 1
+    return out, x16, w16
+
+
+def bf16_shadow(w: torch.Tensor) -> torch.Tensor:
+    """W's bf16 operand, ``round_bf16(w)``: [K, padded_width(N)] bfloat16,
+    pad columns zero, rebuilt only when w has changed since the last call
+    and kept for as long as w lives. Counts rebuilds on
+    ``bf16_shadow.builds``.
+
+    The shadow is keyed on w itself, by identity (never on its address: a
+    freed W and the next one may share it), and holds w's autograd version
+    counter, which every in-place PyTorch op bumps, views' included; the
+    CUDA kernels that write w in place (fused_dw_adamw) bump it themselves.
+    It is no attribute of w, so ``torch.save`` never writes it. It is built
+    outside inference mode, so a shadow made while rendering may be saved
+    for a later training step's backward; an inference tensor has no version
+    counter and gets a fresh shadow on every call."""
+    version = None if w.is_inference() else w._version
+    entry = _SHADOWS.get(w)
+    if entry is not None and version is not None and entry[0] == version:
+        return entry[1]
+    if entry is not None:
+        del _SHADOWS[w], entry  # free the stale shadow before the new one is made
+    with torch.inference_mode(False), torch.no_grad():
+        w16 = round_bf16(w)
+    if version is not None:
+        _SHADOWS[w] = (version, w16)
+    bf16_shadow.builds += 1
+    return w16
 
 
 def round_bf16(src: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -234,11 +298,46 @@ def gemm_bf16_mn(a: torch.Tensor, b: torch.Tensor, k: int | None = None,
     return c if ldc == n else c[:, :n]
 
 
+def gemm_bf16_bias_clamp(a: torch.Tensor, w16: torch.Tensor, bias: torch.Tensor,
+                         n: int | None = None) -> torch.Tensor:
+    """K1's product: clamp(a[:, :K] @ w16[:, :n] + bias, 0, 1) in f32 ->
+    [M, n]; a [M, Ka] and w16 [K, Nb] contiguous bfloat16 with Ka and Nb
+    multiples of 8 (as ``round_bf16`` pads them), K <= Ka, n <= Nb (default
+    Nb), bias [n] contiguous float32. Tiles of 128 x 256 on a persistent
+    grid. The TMA stores need rows of a multiple of 16 bytes: for n not a
+    multiple of 4 the result is the [M, n] view of a [M, n rounded up to 4]
+    tensor. Counts on ``gemm_bf16_bias_clamp.launches``."""
+    if a.device.type == "cpu":
+        return gemm_bf16_bias_clamp_reference(a, w16, bias, n)
+    _require_cuda("gemm_bf16_bias_clamp", a)
+    for name, t in (("a", a), ("w16", w16)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or not t.is_contiguous() or t.device != a.device:
+            raise ValueError(f"gemm_bf16_bias_clamp: {name} must be a contiguous 2-D bfloat16 tensor "
+                             f"on {a.device}")
+    (m, ka), (k, nb) = a.shape, w16.shape
+    n = nb if n is None else n
+    if ka % 8 or nb % 8 or not 0 < k <= ka or not 0 <= n <= nb:
+        raise ValueError(f"gemm_bf16_bias_clamp: a [M, Ka] and w16 [K, Nb] need widths that are "
+                         f"multiples of 8 and 0 < K <= Ka, n <= Nb; got {tuple(a.shape)}, "
+                         f"{tuple(w16.shape)}, n={n}")
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (n,) or not bias.is_contiguous() \
+            or bias.device != a.device:
+        raise ValueError(f"gemm_bf16_bias_clamp: bias must be a contiguous float32 [{n}] tensor on "
+                         f"{a.device}, got {bias.dtype} {tuple(bias.shape)}")
+    ldc = -(-n // 4) * 4
+    c = torch.empty((m, ldc), dtype=torch.float32, device=a.device)
+    if m and n:
+        _launch(gemm_bf16_bias_clamp, "afr_gemm_bf16_bias_clamp", (a, w16, bias, c),
+                (m, k, n, ka, nb, ldc), a.device)
+    return c if ldc == n else c[:, :n]
+
+
 def gemm_attributes(kind: str, device="cuda") -> dict:
-    """A GEMM kernel as built for the card (``kind`` "tn", K2's, or "mn",
-    K3's): registers a thread, static and dynamic shared memory a block
-    (bytes), threads a block, ring stages, and the tile (bm x bn)."""
-    fn_name = {"tn": "afr_gemm_bf16_tn_attrs", "mn": "afr_gemm_bf16_mn_attrs"}[kind]
+    """A GEMM kernel as built for the card (``kind`` "tn", K2's, "mn", K3's,
+    or "k1", K1's): registers a thread, static and dynamic shared memory a
+    block (bytes), threads a block, ring stages, and the tile (bm x bn)."""
+    fn_name = {"tn": "afr_gemm_bf16_tn_attrs", "mn": "afr_gemm_bf16_mn_attrs",
+               "k1": "afr_gemm_bf16_bias_clamp_attrs"}[kind]
     attrs = (ctypes.c_int * 7)()
     with torch.cuda.device(device):
         rc = getattr(_build.load("fused_output", _SIGNATURES), fn_name)(attrs)
@@ -250,8 +349,8 @@ def gemm_attributes(kind: str, device="cuda") -> dict:
 
 def fused_output_dx(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K2: dX = bf16(g * mask(out)) @ bf16(w)^T in f32. g, out [M, N],
-    w [K, N] -> [M, K]. On the card: the operand pass twice (gm16 [M, Np],
-    w16 [K, Np]) and the GEMM once. ``fused_output_dx.launches`` counts K2
+    w [K, N] -> [M, K]. On the card: the operand pass for gm16 [M, Np], w's
+    bf16 shadow [K, Np] and the GEMM. ``fused_output_dx.launches`` counts K2
     calls."""
     if g.device.type == "cpu":
         return fused_output_dx_reference(g, out, w)
@@ -263,13 +362,13 @@ def fused_output_dx(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> torc
     dev = _check("fused_output_dx", {"g": g, "out": out, "w": w}, {"g": (m, n), "out": (m, n), "w": (k, n)})
     if not m:
         return torch.empty((0, k), dtype=torch.float32, device=dev)
-    return _dx(round_bf16(g, out), w)
+    return _dx(round_bf16(g, out), bf16_shadow(w))
 
 
-def _dx(gm16: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K2 on its masked operand gm16 [M, Np]: gm16 @ bf16(w)^T; counts one
-    K2 call."""
-    dx = gemm_bf16_tn(gm16, round_bf16(w))
+def _dx(gm16: torch.Tensor, w16: torch.Tensor) -> torch.Tensor:
+    """K2 on its bf16 operands gm16 [M, Np] and w16 [K, Np]: gm16 @ w16^T;
+    counts one K2 call."""
+    dx = gemm_bf16_tn(gm16, w16)
     fused_output_dx.launches += 1
     return dx
 
@@ -289,13 +388,13 @@ def fused_output_dw(x: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> torc
     dev = _check("fused_output_dw", {"x": x, "g": g, "out": out}, {"x": (m, k), "g": (m, n), "out": (m, n)})
     if not m:
         return torch.zeros((k, n), dtype=torch.float32, device=dev)
-    return _dw(x, round_bf16(g, out), n)
+    return _dw(round_bf16(x), round_bf16(g, out), k, n)
 
 
-def _dw(x: torch.Tensor, gm16: torch.Tensor, n: int) -> torch.Tensor:
-    """K3 on the masked operand gm16 [M, Np]: bf16(x)^T @ gm16[:, :n];
-    counts one K3 call."""
-    dw = gemm_bf16_mn(round_bf16(x), gm16, x.shape[1], n)
+def _dw(x16: torch.Tensor, gm16: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """K3 on its bf16 operands x16 [M, Kp] and gm16 [M, Np]:
+    x16[:, :k]^T @ gm16[:, :n]; counts one K3 call."""
+    dw = gemm_bf16_mn(x16, gm16, k, n)
     fused_output_dw.launches += 1
     return dw
 
@@ -304,18 +403,19 @@ class FusedOutputFunction(torch.autograd.Function):
     """clamp(bf16(x) @ bf16(w) + b, 0, 1) with the projection's own
     gradient: K1 forward; K2 for dx, K3 for dw and db = sum(g * mask) in
     PyTorch, all with the strict mask 0 < out < 1 (the JAX package's
-    custom VJP, ops/fused_output.py:_bwd_rule). On the card the masked
-    cotangent gm16 is formed once, for both K2 and K3."""
+    custom VJP, ops/fused_output.py:_bwd_rule). On the card the backward
+    reads the forward's bf16 operands, x16 and w's shadow w16, and forms the
+    masked cotangent gm16 once, for both K2 and K3."""
 
     @staticmethod
     def forward(ctx, x, w, b):
-        out = fused_output_fwd(x, w, b)
-        ctx.save_for_backward(x, w, out)
+        out, x16, w16 = _k1(x, w, b)
+        ctx.save_for_backward(x, w, x16, w16, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, w, out = ctx.saved_tensors
+        x, w, x16, w16, out = ctx.saved_tensors
         g = g.contiguous()
         need_dx, need_dw, need_db = ctx.needs_input_grad
         dx = dw = None
@@ -324,8 +424,8 @@ class FusedOutputFunction(torch.autograd.Function):
             dw = fused_output_dw(x, g, out) if need_dw else None
         elif need_dx or need_dw:
             gm16 = round_bf16(g, out)
-            dx = _dx(gm16, w) if need_dx else None
-            dw = _dw(x, gm16, g.shape[1]) if need_dw else None
+            dx = _dx(gm16, w16) if need_dx else None
+            dw = _dw(x16, gm16, x.shape[1], g.shape[1]) if need_dw else None
         db = torch.where(clamp_mask(out), g, 0.0).sum(0) if need_db else None
         return dx, dw, db
 
@@ -338,6 +438,8 @@ def fused_output(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 fused_output.launches = 0
+bf16_shadow.builds = 0
+gemm_bf16_bias_clamp.launches = 0
 fused_output_dx.launches = 0
 round_bf16.launches = 0
 gemm_bf16_tn.launches = 0

@@ -255,7 +255,8 @@ def _projection(flat, params, targets, mcfg):
     dt = torch.bfloat16 if mcfg.bf16_matmul or mcfg.use_pallas_output else torch.float32
     flat_dt = flat.to(dt)
     if mcfg.use_pallas_output:
-        out = fused_output_fwd(flat.contiguous(), w.detach(), b.detach())
+        # w itself (this runs under no_grad): its bf16 shadow is keyed on it.
+        out = fused_output_fwd(flat.contiguous(), w, b.detach())
     else:
         out = (flat_dt.float() @ w.detach().to(dt).float() + b.detach()).clamp(0.0, 1.0)
     tflat = targets.reshape(targets.shape[0], -1).float()

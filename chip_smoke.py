@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --step-memory   # only the peak memory of one training step
+    python3 chip_smoke.py --serve-repeats N   # only phase 4's requests, on N servers
 
 Phases, each of which raises on failure, each with its seconds:
 
@@ -34,6 +35,8 @@ Phases, each of which raises on failure, each with its seconds:
 4. Serve: a RenderServer on a unix socket (batch 64, v2 attention, bf16
    frontend) answers 3 requests of different lengths, one longer than a
    batch; the replies must equal a direct render of the same strings.
+   Beside the latencies it prints what could stall all three: garbage
+   collector pauses, new allocator segments, the dispatcher's render calls.
 5. Train at full width (default ModelConfig, batch 1024, weights from a
    seed): the FiraCode corpus of 20480 samples (16 steps per epoch; only
    the corpus is cut) from the port's fontgen, its first 4096 u8 sheets
@@ -60,6 +63,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -176,51 +180,136 @@ def phase_build() -> float:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {name}.cu {line.strip()}", flush=True)
     # The GEMMs' shared memory is dynamic, which ptxas does not report.
-    for kind, name in (("tn", "K2"), ("mn", "K3")):
+    for kind, name in (("k1", "K1"), ("tn", "K2"), ("mn", "K3")):
         print(f"[build] {name} GEMM as loaded: {json.dumps(gemm_attributes(kind))}", flush=True)
     print(f"[build] kernels built in {seconds:.2f} s", flush=True)
     return seconds
 
 
-def check_fused_output(ms_list=(15, 64, 1024), k=6400, n=19200) -> list[dict]:
-    """K1 vs its plain version at the serving path's row counts."""
-    from ai_font_renderer_tpu_torch.ops.fused_output import fused_output, fused_output_reference
+def check_fused_output(ms_list=(15, 64, 1024), k=6400, n=19200) -> tuple[list[dict], ...]:
+    """K1 vs its plain version at the serving path's row counts, and its
+    kernels alone: W's bf16 shadow (the operand pass on W, what a rebuild
+    costs) and the x pass bit for bit against their plain version, and the
+    GEMM with bias and clamp against its plain version.
+    Returns K1's rows, its GEMM's rows and the operand-pass rows."""
+    from ai_font_renderer_tpu_torch.ops.fused_output import (
+        bf16_shadow,
+        fused_output,
+        fused_output_reference,
+        gemm_bf16_bias_clamp,
+        gemm_bf16_bias_clamp_reference,
+        padded_width,
+        round_bf16,
+        round_bf16_reference,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(1)
     bound = 1.0 / k**0.5
     w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) * bound
     b = (torch.rand(n, generator=g, device="cuda") * 2 - 1) * bound
-    w16 = w.to(torch.bfloat16)
-    rows = []
+    kpad, npad = padded_width(k), padded_width(n)
+    rows, gemm_rows, round_rows = [], [], []
+
+    w16 = bf16_shadow(w)
+    passes = [(f"w K={k},N={n}", w, w16)]
     for m in ms_list:
         x = torch.relu(torch.randn(m, k, generator=g, device="cuda"))
+        if m < 1024:  # x's pass at M = 1024 is K3's row
+            passes.append((f"x M={m},K={k}", x, round_bf16(x)))
         got = fused_output(x, w, b)
         want = fused_output_reference(x, w, b)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not err <= K1_TOL:
             raise AssertionError(f"fused_output M={m}: max abs err {err} > {K1_TOL}")
+        del got, want
+        x16 = round_bf16(x)
+        lib_x16, lib_w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
         iters = 20 if m < 256 else 10
-        bytes_moved = 4 * (m * k + k * n + n + m * n)
-        bound_ms, bound_by = _bound(bytes_moved, 2 * m * k * n, BF16_TENSOR_FLOPS)
-        x16 = x.to(torch.bfloat16)
+        ops = 2 * m * k * n
+        ggot = gemm_bf16_bias_clamp(x16, w16, b, n)
+        gwant = gemm_bf16_bias_clamp_reference(x16, w16, b, n)
+        torch.cuda.synchronize()
+        gerr = float((ggot - gwant).abs().max())
+        if not gerr <= K1_TOL:
+            raise AssertionError(f"K1 GEMM M={m}: max abs err {gerr} > {K1_TOL}")
+        del ggot
+        gemm_ms = time_ms(lambda: gemm_bf16_bias_clamp(x16, w16, b, n), iters)
+        gbound_ms, gbound_by = _bound(2 * m * kpad + 2 * k * npad + 4 * n + 4 * m * n, ops,
+                                      BF16_TENSOR_FLOPS)
+        grow = {
+            "shape": f"M={m},K={k},N={n}",
+            "max_abs_err": gerr,
+            "tol": K1_TOL,
+            "ms": gemm_ms,
+            "plain_ms": time_ms(lambda: gemm_bf16_bias_clamp_reference(x16, w16, b, n), max(3, iters // 4)),
+            # cuBLAS on the same bf16 operands, bias in its epilogue, f32
+            # out, then the clamp: the same function.
+            "library_ms": time_ms(
+                lambda: torch.addmm(b, x16, w16, out_dtype=torch.float32).clamp_(0.0, 1.0), iters
+            ),
+            "bound_ms": gbound_ms,
+            "bound_by": gbound_by,
+            "tflops": ops / gemm_ms / 1e9,
+        }
+        print(f"[K1 gemm_bf16_bias_clamp] {json.dumps(grow)}", flush=True)
+        gemm_rows.append(grow)
+        del gwant
+
+        # With the shadow held, as on the main path, K1 reads x, W's bf16
+        # copy and b and writes out.
+        bound_ms, bound_by = _bound(4 * (m * k + n + m * n) + 2 * k * npad, ops, BF16_TENSOR_FLOPS)
         row = {
             "shape": f"M={m},K={k},N={n}",
             "max_abs_err": err,
             "tol": K1_TOL,
             "ms": time_ms(lambda: fused_output(x, w, b), iters),
+            "prep_ms": time_ms(lambda: round_bf16(x), iters),
+            "gemm_ms": gemm_ms,
+            "gemm_tflops": grow["tflops"],
             "plain_ms": time_ms(lambda: fused_output_reference(x, w, b), max(3, iters // 4)),
             # cuBLAS bf16 GEMM with the bias in its epilogue and f32 out,
-            # W cast to bf16 once outside the timed region, then the clamp.
+            # x and W cast to bf16 once outside the timed region, then the
+            # clamp.
             "library_ms": time_ms(
-                lambda: torch.addmm(b, x16, w16, out_dtype=torch.float32).clamp_(0.0, 1.0), iters
+                lambda: torch.addmm(b, lib_x16, lib_w16, out_dtype=torch.float32).clamp_(0.0, 1.0), iters
             ),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            # The bound of a call on a changed W, which must read W in f32
+            # (the shadow's rebuild, row "w" of the operand pass).
+            "f32_w_bound_ms": _bound(4 * (m * k + k * n + n + m * n), ops, BF16_TENSOR_FLOPS)[0],
         }
         print(f"[K1 fused_output] {json.dumps(row)}", flush=True)
         rows.append(row)
-    return rows
+        del x16, lib_x16, lib_w16
+
+    for shape, src, got in passes:
+        want = round_bf16_reference(src)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"K1 operand pass {shape}: differs from its plain version")
+        r, c = src.shape
+        bound_ms, bound_by = _bound(4 * r * c + 2 * r * padded_width(c), 0, BF16_TENSOR_FLOPS)
+        row = {
+            "shape": shape,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "tol": "bit for bit",
+            "ms": time_ms(lambda: round_bf16(src), 10),
+            "plain_ms": time_ms(lambda: round_bf16_reference(src), 5),
+            # N and K are multiples of 8: no pad, the pass is one cast.
+            "library_ms": time_ms(lambda: src.to(torch.bfloat16), 10),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        if src is w:
+            # A rebuild through the shadow's cache: W's version moved.
+            row["shadow_build_ms"] = time_ms(
+                lambda: (torch.autograd.graph.increment_version(w), bf16_shadow(w)), 10)
+        print(f"[K1 round_bf16] {json.dumps(row)}", flush=True)
+        round_rows.append(row)
+        del want
+    return rows, gemm_rows, round_rows
 
 
 def _rel(got, want) -> float:
@@ -228,13 +317,15 @@ def _rel(got, want) -> float:
 
 
 def _k2_parts(cot, out, w, m, k, n, round_rows, gemm_rows) -> dict:
-    """K2's two kernels on K2's inputs: the operand pass (g masked, and W)
-    bit for bit against its plain version, the GEMM on those operands
-    against its plain version; their rows for the kernels line (the W pass
-    once, at the first M), and K2's own extra fields: prep_ms (both
-    passes), gemm_ms, gemm_tflops, and library_with_casts_ms (the mask, the
-    two casts and torch.mm: the same two-pass work in PyTorch)."""
+    """K2's kernels on K2's inputs: the masked operand pass bit for bit
+    against its plain version (W's operand is its bf16 shadow, K1's row),
+    the GEMM on those operands against its plain version; their rows for
+    the kernels line, and K2's own extra fields: prep_ms (the masked pass:
+    the shadow is built once while W is unchanged), gemm_ms, gemm_tflops,
+    and library_with_casts_ms (the mask, the two casts and torch.mm: the
+    same two-pass work in PyTorch)."""
     from ai_font_renderer_tpu_torch.ops.fused_output import (
+        bf16_shadow,
         clamp_mask,
         gemm_bf16_tn,
         gemm_bf16_tn_reference,
@@ -244,32 +335,26 @@ def _k2_parts(cot, out, w, m, k, n, round_rows, gemm_rows) -> dict:
     )
 
     npad = padded_width(n)
-    gm16, w16 = round_bf16(cot, out), round_bf16(w)
-    passes = [(f"gm M={m},N={n}", (cot, out), gm16, None)]
-    if not round_rows:
-        passes.append((f"w K={k},N={n}", (w,), w16, lambda: w.to(torch.bfloat16)))
-    for shape, args, got, library in passes:
-        want = round_bf16_reference(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-            raise AssertionError(f"K2 operand pass {shape}: differs from its plain version")
-        rows = args[0].shape[0]
-        bound_ms, bound_by = _bound(4 * rows * n * len(args) + 2 * rows * npad, 0, BF16_TENSOR_FLOPS)
-        row = {
-            "shape": shape,
-            "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "tol": "bit for bit",
-            "ms": time_ms(lambda: round_bf16(*args), 10),
-            "plain_ms": time_ms(lambda: round_bf16_reference(*args), 5),
-            # The W pass is one cast (N is a multiple of 8: no pad); the
-            # masked pass has no single PyTorch call.
-            "library_ms": time_ms(library, 10) if library else None,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-        }
-        print(f"[K2 round_bf16] {json.dumps(row)}", flush=True)
-        round_rows.append(row)
-        del want
+    gm16, w16 = round_bf16(cot, out), bf16_shadow(w)
+    want = round_bf16_reference(cot, out)
+    torch.cuda.synchronize()
+    if not torch.equal(gm16.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"K2 operand pass gm M={m},N={n}: differs from its plain version")
+    bound_ms, bound_by = _bound(8 * m * n + 2 * m * npad, 0, BF16_TENSOR_FLOPS)
+    row = {
+        "shape": f"gm M={m},N={n}",
+        "max_abs_err": float((gm16.float() - want.float()).abs().max()),
+        "tol": "bit for bit",
+        "ms": time_ms(lambda: round_bf16(cot, out), 10),
+        "plain_ms": time_ms(lambda: round_bf16_reference(cot, out), 5),
+        # The masked pass has no single PyTorch call.
+        "library_ms": None,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    print(f"[K2 round_bf16] {json.dumps(row)}", flush=True)
+    round_rows.append(row)
+    del want
 
     got, want = gemm_bf16_tn(gm16, w16), gemm_bf16_tn_reference(gm16, w16)
     torch.cuda.synchronize()
@@ -295,7 +380,7 @@ def _k2_parts(cot, out, w, m, k, n, round_rows, gemm_rows) -> dict:
     gemm_rows.append(row)
     del got, want
     return {
-        "prep_ms": time_ms(lambda: (round_bf16(cot, out), round_bf16(w)), 10),
+        "prep_ms": time_ms(lambda: round_bf16(cot, out), 10),
         "gemm_ms": gemm_ms,
         "gemm_tflops": row["tflops"],
         "library_with_casts_ms": time_ms(lambda: torch.mm(
@@ -375,10 +460,11 @@ def _k3_parts(x, cot, out, m, k, n, round_rows, mn_rows) -> dict:
     }
 
 
-def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], ...]:
+def check_backward(round_rows: list, ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], ...]:
     """K2 (dX) and K3 (dW) vs their plain versions at the training path's
     row counts (the batch of 1024, and a ragged 200), and the kernels of
-    each (operand pass, GEMM) alone on its inputs."""
+    each (operand pass, GEMM) alone on its inputs; the operand-pass rows
+    go on ``round_rows``."""
     from ai_font_renderer_tpu_torch.ops.fused_output import (
         fused_output_dw,
         fused_output_dw_reference,
@@ -392,7 +478,7 @@ def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], ..
     w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) * bound
     b = (torch.rand(n, generator=g, device="cuda") * 2 - 1) * bound
     w16 = w.to(torch.bfloat16)
-    dx_rows, dw_rows, round_rows, gemm_rows, mn_rows = [], [], [], [], []
+    dx_rows, dw_rows, gemm_rows, mn_rows = [], [], [], []
     for m in ms_list:
         x = torch.relu(torch.randn(m, k, generator=g, device="cuda"))
         out = fused_output_reference(x, w, b)
@@ -431,7 +517,7 @@ def check_backward(ms_list=(200, 1024), k=6400, n=19200) -> tuple[list[dict], ..
                 row.update(_k3_parts(x, cot, out, m, k, n, round_rows, mn_rows))
             print(f"[{name}] {json.dumps(row)}", flush=True)
             rows.append(row)
-    return dx_rows, dw_rows, round_rows, gemm_rows, mn_rows
+    return dx_rows, dw_rows, gemm_rows, mn_rows
 
 
 def check_dw_adamw(ms_list=(200, 1024), k=6400, n=19200) -> list[dict]:
@@ -818,6 +904,7 @@ def _kernel_fns():
 
     return {
         "fused_output": ops.fused_output,
+        "gemm_bf16_bias_clamp": ops.gemm_bf16_bias_clamp,
         "fused_attention": ops.fused_attention,
         "fused_attention2": ops.fused_attention2,
         "fused_output_dx": ops.fused_output_dx,
@@ -833,12 +920,22 @@ def _kernel_fns():
 
 
 def _reset_counts():
+    from ai_font_renderer_tpu_torch.ops import bf16_shadow
+
     for fn in _kernel_fns().values():
         fn.launches = 0
+    bf16_shadow.builds = 0
 
 
 def _counts() -> dict:
     return {name: fn.launches for name, fn in _kernel_fns().items()}
+
+
+def _builds() -> int:
+    """Rebuilds of W's bf16 shadow since the last _reset_counts."""
+    from ai_font_renderer_tpu_torch.ops import bf16_shadow
+
+    return bf16_shadow.builds
 
 
 def _atlas_strings(n: int, length: int, seed: int = 0) -> list[str]:
@@ -923,9 +1020,11 @@ def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
     )
     del params
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     _render_test_strings(loaded, mcfg, os.path.join(workdir, "renders"), "render")
-    strings_counts = _counts()
+    strings_counts, strings_builds = _counts(), _builds()
 
     strings = _atlas_strings(4096, mcfg.max_length)
     torch.cuda.synchronize()
@@ -938,7 +1037,8 @@ def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
         atlas = render_atlas(loaded, strings, mcfg)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
-    atlas_counts = _counts()
+    atlas_counts, atlas_builds = _counts(), _builds()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     if atlas.shape != (4096, 80, 240) or not bool(torch.isfinite(atlas).all()):
         raise AssertionError(f"atlas {tuple(atlas.shape)} not finite or misshapen")
     if not torch.equal(atlas, warm):
@@ -949,38 +1049,70 @@ def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
     _profile_atlas(loaded, strings, mcfg)
     counts = {k: strings_counts[k] + atlas_counts[k] for k in strings_counts}
     print(f"[render] launches: test strings {strings_counts}, atlas {atlas_counts}", flush=True)
-    for name in ("fused_output", "fused_attention"):
+    print(f"[render] W's bf16 shadow built {strings_builds} times for the test strings, {atlas_builds} "
+          f"for the atlas; peak device memory of the test strings and the atlas {peak_mib:.1f} MiB "
+          f"({card})", flush=True)
+    if strings_builds + atlas_builds > 1:
+        raise AssertionError(f"render built W's shadow {strings_builds + atlas_builds} times, want once")
+    for name in ("fused_output", "gemm_bf16_bias_clamp", "fused_attention"):
         if counts[name] <= 0:
             raise AssertionError(f"render never launched {name}: {counts}")
     return loaded, counts
 
 
-def phase_serve(params, workdir: str) -> dict:
+SERVE_REQUESTS = {
+    "short": ["HELLO", "SERVE ME", ""],
+    "mid": _atlas_strings(17, 40, seed=1),
+    "long": _atlas_strings(150, 100, seed=2),  # more than one 64-string batch
+}
+
+
+def _serve_config():
     from ai_font_renderer_tpu_torch.config import ModelConfig
-    from ai_font_renderer_tpu_torch.render import render_batch_u8_async
+
+    return ModelConfig(use_pallas_output=True, fused_attention_v2=True, bf16_frontend=True)
+
+
+def _serve_once(params, sock: str) -> tuple[dict, dict, dict]:
+    """One server of batch 64 and the three SERVE_REQUESTS sent at once:
+    (replies, latency ms from send to last reply byte, stalls). ``stalls``
+    holds what could hold back all three at once, from just before the sends
+    to the last reply: the garbage collector's pauses ([generation, ms]),
+    the caching allocator's new device segments and retries, and each of the
+    dispatcher's render calls as [host ms since the sends, ms it took]."""
     from ai_font_renderer_tpu_torch.render.server import RenderServer, request_render
 
-    scfg = ModelConfig(use_pallas_output=True, fused_attention_v2=True, bf16_frontend=True)
-    sock = os.path.join(workdir, "afr.sock")
-    requests = {
-        "short": ["HELLO", "SERVE ME", ""],
-        "mid": _atlas_strings(17, 40, seed=1),
-        "long": _atlas_strings(150, 100, seed=2),  # more than one 64-string batch
-    }
-    _reset_counts()
-    srv = RenderServer(params, scfg, socket_path=sock, batch_size=64)
+    srv = RenderServer(params, _serve_config(), socket_path=sock, batch_size=64)
     srv.start()
-    replies, latency_ms, errors = {}, {}, []
-    try:
-        def client(name):
-            try:
-                t0 = time.perf_counter()
-                replies[name] = request_render(sock, requests[name])
-                latency_ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
-            except Exception as e:  # reported below, after the join
-                errors.append((name, repr(e)))
+    replies, latency_ms, errors, gc_ms, dispatch_ms, gc_t0 = {}, {}, [], [], [], []
+    render = srv.batcher._render
 
-        threads = [threading.Thread(target=client, args=(n,)) for n in requests]
+    def timed_render(strings):
+        t0 = time.perf_counter()
+        out = render(strings)
+        dispatch_ms.append([round((t0 - origin) * 1e3, 3), round((time.perf_counter() - t0) * 1e3, 3)])
+        return out
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[:] = [time.perf_counter()]
+        else:
+            gc_ms.append([info["generation"], round((time.perf_counter() - gc_t0[0]) * 1e3, 3)])
+
+    def client(name):
+        try:
+            t0 = time.perf_counter()
+            replies[name] = request_render(sock, SERVE_REQUESTS[name])
+            latency_ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        except Exception as e:  # reported below, after the join
+            errors.append((name, repr(e)))
+
+    srv.batcher._render = timed_render
+    mem0 = torch.cuda.memory_stats()
+    gc.callbacks.append(on_gc)
+    try:
+        threads = [threading.Thread(target=client, args=(n,)) for n in SERVE_REQUESTS]
+        origin = time.perf_counter()
         for t in threads:
             t.start()
         for t in threads:
@@ -988,18 +1120,37 @@ def phase_serve(params, workdir: str) -> dict:
         if errors or any(t.is_alive() for t in threads):
             raise AssertionError(f"serve clients failed: {errors}")
     finally:
+        gc.callbacks.remove(on_gc)
         srv.stop()
-    counts = _counts()
-    for name, strings in requests.items():
+    mem1 = torch.cuda.memory_stats()
+    stalls = {
+        "gc_ms": gc_ms,
+        "new_segments": mem1["segment.all.allocated"] - mem0["segment.all.allocated"],
+        "alloc_retries": mem1["num_alloc_retries"] - mem0["num_alloc_retries"],
+        "dispatch_ms": dispatch_ms,
+    }
+    return replies, latency_ms, stalls
+
+
+def phase_serve(params, workdir: str) -> dict:
+    from ai_font_renderer_tpu_torch.render import render_batch_u8_async
+
+    _reset_counts()
+    replies, latency_ms, stalls = _serve_once(params, os.path.join(workdir, "afr.sock"))
+    counts, builds = _counts(), _builds()
+    for name, strings in SERVE_REQUESTS.items():
         header, payloads = replies[name]
         got = np.stack([np.frombuffer(p, np.uint8).reshape(80, 240) for p in payloads])
-        want = render_batch_u8_async(params, strings, scfg).cpu().numpy()
+        want = render_batch_u8_async(params, strings, _serve_config()).cpu().numpy()
         if header["count"] != len(strings) or not np.array_equal(got, want):
             diff = int(np.abs(got.astype(int) - want.astype(int)).max())
             raise AssertionError(f"serve reply {name} differs from a direct render (max {diff})")
-    print(f"[serve] 3 concurrent requests ({[len(v) for v in requests.values()]} strings) equal "
-          f"direct renders; latency ms {latency_ms}; launches {counts}", flush=True)
-    for name in ("fused_output", "fused_attention2"):
+    print(f"[serve] 3 concurrent requests ({[len(v) for v in SERVE_REQUESTS.values()]} strings) equal "
+          f"direct renders; latency ms {latency_ms}; stalls {json.dumps(stalls)}; launches {counts}; "
+          f"W's bf16 shadow built {builds} times", flush=True)
+    if builds > 1:
+        raise AssertionError(f"serve built W's shadow {builds} times, want once at most")
+    for name in ("fused_output", "gemm_bf16_bias_clamp", "fused_attention2"):
         if counts[name] <= 0:
             raise AssertionError(f"serve never launched {name}: {counts}")
     return counts
@@ -1026,9 +1177,11 @@ def step_memory() -> int:
     full-width training step at batch 1024 (after a warm one) in the plain,
     ``output`` and ``fused`` configurations, weights from a seed and a
     random batch (no corpus), so the figure is the model, its state and the
-    step alone."""
+    step alone; then over one 1024-sheet atlas chunk rendered with K1 and
+    the attention forward (weights, W's bf16 shadow, activations)."""
     from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig, replace
     from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.render import render_atlas
     from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
 
     if not torch.cuda.is_available():
@@ -1053,7 +1206,42 @@ def step_memory() -> int:
         torch.cuda.synchronize()
         peaks[name] = torch.cuda.max_memory_allocated() / 2**20
         del state
-    print(f"[step memory] peak MiB of one step at batch 1024: {json.dumps(peaks)}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    render_atlas(params, _atlas_strings(1024, base.max_length), replace(base, fused_attention=True))
+    torch.cuda.synchronize()
+    peaks["render"] = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[step memory] peak MiB of one step at batch 1024 and of one 1024-sheet render: "
+          f"{json.dumps(peaks)}", flush=True)
+    return 0
+
+
+def serve_repeats(repeats: int) -> int:
+    """``--serve-repeats N``: the serve phase's three requests on N servers
+    one after the other, after what precedes the serve phase on the main
+    path (weights from its seed, the test strings and a profiled atlas
+    render with K1 and the v1 attention), each run's latencies beside its
+    stalls (see _serve_once). Uses no counter of the kernels, so it runs on
+    an earlier tree of the port too."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.render import render_batch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    card = _nvidia_smi()
+    print(card, flush=True)
+    mcfg = ModelConfig(use_pallas_output=True, fused_attention=True)
+    params = font_renderer.init(torch.Generator(device="cuda").manual_seed(0), mcfg, "cuda")
+    render_batch(params, ["HELLO"] * 15, mcfg)
+    _profile_atlas(params, _atlas_strings(4096, mcfg.max_length), mcfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        for i in range(repeats):
+            _, latency_ms, stalls = _serve_once(params, os.path.join(workdir, "afr.sock"))
+            print(f"[serve {i}] latency ms {json.dumps(latency_ms)}; stalls {json.dumps(stalls)} ({card})",
+                  flush=True)
     return 0
 
 
@@ -1128,6 +1316,7 @@ def phase_train(workdir: str, card: str) -> dict:
     kernel configurations, then the checks around it."""
     from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, ModelConfig, TrainConfig, replace
     from ai_font_renderer_tpu_torch.fontgen import bake_atlas, build_device_dataset, build_layouts
+    from ai_font_renderer_tpu_torch.fontgen.dataset import split_sizes
     from ai_font_renderer_tpu_torch.fontgen.sheets import synthesize_sheets_host
     from ai_font_renderer_tpu_torch.models import font_renderer
     from ai_font_renderer_tpu_torch.train import train
@@ -1135,6 +1324,7 @@ def phase_train(workdir: str, card: str) -> dict:
     from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config, save_params
 
     n_samples, epochs = 20480, 3
+    steps_per_epoch = split_sizes(n_samples, TrainConfig().validation_split)[0] // 1024
     t0 = time.perf_counter()
     atlas = bake_atlas(FIRACODE_PATH)
     _, grids = build_layouts(atlas, n_samples)
@@ -1170,21 +1360,26 @@ def phase_train(workdir: str, card: str) -> dict:
         t0 = time.perf_counter()
         res = train(ds, mcfg, tcfg, log=lambda msg, name=name: print(f"[train {name}] {msg}", flush=True))
         torch.cuda.synchronize()
-        run_counts = _counts()
+        run_counts, builds = _counts(), _builds()
         seconds = time.perf_counter() - t0
         counts = {k: counts[k] + run_counts[k] for k in counts}
         losses = [round(h["train_loss"], 6) for h in res.history]
         vals = [h["val_loss"] for h in res.history]
+        steps = len(res.history) * steps_per_epoch
         print(f"[train {name}] {epochs} epochs in {seconds:.2f} s; train loss {losses}; val loss "
-              f"{[round(v, 6) for v in vals]}; launches {run_counts}", flush=True)
+              f"{[round(v, 6) for v in vals]}; launches {run_counts}; W's bf16 shadow built {builds} "
+              f"times in {steps} steps", flush=True)
         if not (losses[-1] < losses[0] and all(np.isfinite(vals))):
             raise AssertionError(f"train {name}: the train loss did not fall or val is not finite")
+        if builds > steps + 1:
+            raise AssertionError(f"train {name} built W's shadow {builds} times in {steps} steps, "
+                                 f"want one a step plus one")
         for kernel in attention_kernels.get(name, ()):
             if run_counts[kernel] <= 0:
                 raise AssertionError(f"train {name} never launched {kernel}: {run_counts}")
         results[name] = res
-    for kernel in ("fused_output_dx", "round_bf16", "gemm_bf16_tn", "fused_output_dw", "gemm_bf16_mn",
-                   "fused_dw_adamw"):
+    for kernel in ("fused_output", "gemm_bf16_bias_clamp", "fused_output_dx", "round_bf16", "gemm_bf16_tn",
+                   "fused_output_dw", "gemm_bf16_mn", "fused_dw_adamw"):
         if counts[kernel] <= 0:
             raise AssertionError(f"training never launched {kernel}: {counts}")
 
@@ -1277,11 +1472,11 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
-    k1_rows = timed("check K1", check_fused_output)
+    k1_rows, k1_gemm_rows, round_rows = timed("check K1", check_fused_output)
     attn_rows = timed("check attention", check_fused_attention)
     drop_rows = timed("check attention dropout", check_attention_dropout)
     k6_rows, k8_rows = timed("check K6/K8", check_attention_backward)
-    dx_rows, dw_rows, round_rows, gemm_rows, mn_rows = timed("check K2/K3", check_backward)
+    dx_rows, dw_rows, gemm_rows, mn_rows = timed("check K2/K3", check_backward, round_rows)
     k4_rows = timed("check K4", check_dw_adamw)
     k9_rows = timed("check K9", check_dw_adamw_xt)
 
@@ -1300,6 +1495,11 @@ def main() -> int:
             "fused_output_fwd", src + "fused_output.cu",
             "ai_font_renderer_tpu/ops/fused_output.py:47", k1_rows,
             "M=1024,K=6400,N=19200", launches["fused_output"],
+        ),
+        _kernel_entry(
+            "gemm_bf16_bias_clamp (K1 GEMM)", src + "sm90_gemm.cuh",
+            "ai_font_renderer_tpu/ops/fused_output.py:47", k1_gemm_rows,
+            "M=1024,K=6400,N=19200", launches["gemm_bf16_bias_clamp"],
         ),
         _kernel_entry(
             "fused_attention_fwd (v1 entry point, K5)", src + "fused_attention.cu",
@@ -1331,7 +1531,7 @@ def main() -> int:
             "M=1024,K=6400,N=19200", launches["fused_output_dx"],
         ),
         _kernel_entry(
-            "round_bf16 (operand pass of K2 and K3)", src + "fused_output.cu",
+            "round_bf16 (operand pass of K1, K2 and K3; W's shadow)", src + "fused_output.cu",
             "ai_font_renderer_tpu/ops/fused_output.py:96", round_rows,
             "w K=6400,N=19200", launches["round_bf16"],
         ),
@@ -1377,4 +1577,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(step_memory() if sys.argv[1:] == ["--step-memory"] else main())
+    if sys.argv[1:] == ["--step-memory"]:
+        sys.exit(step_memory())
+    if sys.argv[1:2] == ["--serve-repeats"] and len(sys.argv) == 3:
+        sys.exit(serve_repeats(int(sys.argv[2])))
+    sys.exit(main())

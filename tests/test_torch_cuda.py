@@ -13,6 +13,7 @@ import torch
 
 from ai_font_renderer_tpu_torch.ops.philox import dropout_keep
 from ai_font_renderer_tpu_torch.ops import (
+    bf16_shadow,
     fused_attention,
     fused_attention2,
     fused_attention2_backward,
@@ -29,6 +30,8 @@ from ai_font_renderer_tpu_torch.ops import (
     fused_output_dx,
     fused_output_dx_reference,
     fused_output_reference,
+    gemm_bf16_bias_clamp,
+    gemm_bf16_bias_clamp_reference,
     gemm_bf16_mn,
     gemm_bf16_mn_reference,
     gemm_bf16_tn,
@@ -396,6 +399,105 @@ def test_train_step_with_kernels_matches_plain_step(cuda, fused):
     kern_mu = kern.mu_w if fused else kern.mu["out_w"]
     assert kern_mu.dtype == torch.bfloat16
     assert _rel_err(kern_mu.float(), plain.mu["out_w"].float()) <= 1e-2
+
+
+def _k1_counts():
+    return (fused_output.launches, round_bf16.launches, gemm_bf16_bias_clamp.launches,
+            bf16_shadow.builds)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 6400, 19200), (15, 6400, 19200), (64, 6400, 19200),
+                                   (129, 6400, 19200), (1024, 6400, 19200), (37, 202, 301),
+                                   (130, 640, 1283)])
+def test_gemm_bf16_bias_clamp_matches_plain(cuda, m, k, n):
+    """K1's GEMM on the x pass and W's shadow against its plain version at
+    the model's width (K = 6400, N = 19200) and at ragged shapes (a ragged
+    K-block, N not a multiple of 8): to 1e-4 (f32 sums of exact bf16
+    products in another order, of outputs clamped to [0, 1])."""
+    x, w, b = _output_inputs(m, k, n, cuda, seed=m)
+    x16, w16 = round_bf16(x), round_bf16(w)
+    before = gemm_bf16_bias_clamp.launches
+    got = gemm_bf16_bias_clamp(x16, w16, b, n)
+    assert gemm_bf16_bias_clamp.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    want = gemm_bf16_bias_clamp_reference(x16, w16, b, n)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got, fused_output_reference(x, w, b), atol=1e-4, rtol=0)
+
+
+def test_k1_wrappers_refuse_what_they_cannot_take(cuda):
+    a = torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16)
+    w16 = torch.zeros(16, 24, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(24, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gemm_bf16_bias_clamp(a.float(), w16, b)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gemm_bf16_bias_clamp(torch.zeros(4, 12, device=cuda, dtype=torch.bfloat16), w16[:12].contiguous(), b)
+    with pytest.raises(ValueError, match="K <= Ka"):
+        gemm_bf16_bias_clamp(a[:, :8].contiguous(), w16, b)
+    with pytest.raises(ValueError, match="bias"):
+        gemm_bf16_bias_clamp(a, w16, b[:8].contiguous())
+    with pytest.raises(ValueError, match="bias"):
+        gemm_bf16_bias_clamp(a, w16, b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm_bf16_bias_clamp(torch.zeros(16, 4, device=cuda, dtype=torch.bfloat16).T, w16, b)
+    x, w, _ = _output_inputs(4, 16, 24, cuda)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fused_output(x, w, b[:8].contiguous())
+
+
+def test_k1_launch_counts_and_shadow_builds(cuda):
+    """K1 on the card is the x pass, W's shadow and the GEMM: on a new W the
+    operand pass runs twice (x16, the shadow), on the same W again once;
+    each call counts one K1 launch and one GEMM launch."""
+    x, w, b = _output_inputs(64, 640, 1283, cuda)
+    before = _k1_counts()
+    first = fused_output(x, w, b)
+    assert _k1_counts() == (before[0] + 1, before[1] + 2, before[2] + 1, before[3] + 1)
+    again = fused_output(x, w, b)
+    assert _k1_counts() == (before[0] + 2, before[1] + 3, before[2] + 2, before[3] + 1)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("xt", [False, True], ids=["K4", "K9"])
+def test_k4_update_then_k1_reads_the_new_weights(cuda, xt):
+    """K4 (or K9) writes W in place from CUDA and bumps the version counters
+    of W and its moments; the next K1 rebuilds W's shadow exactly once and
+    gives the updated weights' plain result."""
+    m, k, n = 64, 640, 384
+    x, _, b = _output_inputs(m, k, n, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x16 = torch.relu(torch.randn(m, k, generator=gen, device=cuda)).to(torch.bfloat16)
+    gm = (torch.randn(m, n, generator=gen, device=cuda) * 1e-3).to(torch.bfloat16)
+    w, mu, nu = _adam_state(k, n, torch.bfloat16, cuda)
+    first = fused_output(x, w, b)
+    versions = [t._version for t in (w, mu, nu)]
+    builds = bf16_shadow.builds
+    if xt:
+        fused_dw_adamw_xt(x16.T.contiguous(), gm, w, mu, nu, 1e-2, 5)
+    else:
+        fused_dw_adamw(x16, gm, w, mu, nu, 1e-2, 5e-4, 0.9, 0.99, 5)
+    assert all(t._version > v for t, v in zip((w, mu, nu), versions))
+    got = fused_output(x, w, b)
+    assert bf16_shadow.builds == builds + 1
+    assert not torch.equal(got, first)
+    torch.testing.assert_close(got, fused_output_reference(x, w, b), atol=1e-4, rtol=0)
+    fused_output(x, w, b)
+    assert bf16_shadow.builds == builds + 1
+
+
+def test_k2_reads_the_shadow_k1_built(cuda):
+    """After a K1 forward on W, K2 reads the same shadow: one operand pass
+    (gm16) and one GEMM, no rebuild; its result is K2's plain version, to
+    1e-4 of the largest value."""
+    x, w, b = _output_inputs(200, 640, 1283, cuda)
+    out = fused_output(x, w, b)
+    assert out.is_contiguous()
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    before = (*_k2_counts(), bf16_shadow.builds)
+    dx = fused_output_dx(g, out, w)
+    assert (*_k2_counts(), bf16_shadow.builds) == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert _rel_err(dx, fused_output_dx_reference(g, out, w)) <= 1e-4
 
 
 ATTN_SHAPES = [(3, 100, 32, 4), (5, 7, 16, 2), (2, 40, 32, 1)]
