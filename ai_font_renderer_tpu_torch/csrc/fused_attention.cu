@@ -23,7 +23,8 @@
 //
 // The roundings follow the TPU kernel: weights are rounded to x's type once,
 // q/k/v and the concatenated heads after their f32 sums and the bias,
-// probabilities after the f32 softmax. x is f32 or bf16.
+// probabilities after the f32 softmax. x is f32 here; bf16 activations
+// take the tensor-core kernels of csrc/attention_mma.cu.
 //
 // Dropout: the keep bit of probability o = ((b*H + h)*S + s)*S + t is
 // philox(seed, o) < thresh (csrc/philox.cuh), so it does not depend on the
@@ -41,13 +42,9 @@
 // backward, and moves 25.6 KB (forward) or 38.4 KB (backward) of x, g, out
 // and dx in f32: above the card's f32 CUDA-core ridge (67 TFLOP/s over
 // 3.35 TB/s = 20 FLOP/byte), so the f32 rate outside the tensor cores
-// bounds both in f32. In bf16 every operand of every product is rounded to
-// bf16 first, so tensor cores (mma.sync m16n8k8 takes bf16; most of the
-// operations are the [S,E]x[E,E] products, which contract over E = 32)
-// would give the same results at 989 TFLOP/s, and bytes bound the bf16
-// kernels. This first design runs every product on the CUDA cores in f32
-// all the same; tensor cores are a later lever. It keeps everything of one
-// sample in shared memory, one block of 16 warps per sample.
+// bounds both (f32 products on tensor cores would be TF32). It keeps
+// everything of one sample in shared memory, one block of 16 warps per
+// sample.
 //   Forward (about 78 KB): weights, x, q, k, v, one row of probabilities per
 //   warp; one warp per (query, head) row, whose logits never leave shared
 //   memory. Rows of q/k/v are padded to E + 1 floats so that the 32 lanes,
@@ -63,7 +60,6 @@
 // One block per sample leaves most SMs idle at a small batch; splitting a
 // sample's rows over blocks is a later lever.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -92,18 +88,6 @@ struct Act<float> {
   static __device__ __forceinline__ void store(float* p, size_t i, float v) { p[i] = v; }
 };
 
-template <>
-struct Act<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
-    return __bfloat162float(p[i]);
-  }
-  static __device__ __forceinline__ float rnd(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, size_t i, float v) {
-    p[i] = __float2bfloat16(v);
-  }
-};
 
 // One byte per warp and key for the keep bits of the row in flight.
 size_t keep_floats(int S) { return ((size_t)WARPS * S + 3) / 4; }
@@ -542,7 +526,7 @@ extern "C" long long afr_fused_attention_bwd_smem_bytes(int S, int E, int H) {
   return (long long)(bwd_smem_floats(S, E, H) * sizeof(float));
 }
 
-// x and out: [B, S, E] contiguous, float32 (dtype 0) or bfloat16 (dtype 1).
+// x and out: [B, S, E] contiguous float32.
 // Weights [E, E] and biases [E] are float32, in the order wq wk wv wo bq bk
 // bv bo. mode 0: rate 0; 1 (v1) or 2 (v2): dropout, `seed` points to one
 // int32 on the device, words below `thresh` are kept, kept probabilities are
@@ -553,19 +537,14 @@ extern "C" int afr_fused_attention_fwd(const void* x, const float* wq, const flo
                                        const float* wv, const float* wo, const float* bq,
                                        const float* bk, const float* bv, const float* bo,
                                        void* out, unsigned char* mask, const int* seed, int B,
-                                       int S, int E, int H, int dtype, int mode,
-                                       unsigned int thresh, float keep, void* stream) {
+                                       int S, int E, int H, int mode, unsigned int thresh,
+                                       float keep, void* stream) {
   const float* w[8] = {wq, wk, wv, wo, bq, bk, bv, bo};
-  if (dtype == 0)
-    return launch_fwd<float>(x, w, out, mask, seed, B, S, E, H, mode, thresh, keep, stream);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(x, w, out, mask, seed, B, S, E, H, mode, thresh, keep,
-                                     stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_fwd<float>(x, w, out, mask, seed, B, S, E, H, mode, thresh, keep, stream);
 }
 
-// The backward. x, g (the upstream gradient, in x's type) and dx: [B, S, E]
-// contiguous, dtype as the forward; weights as the forward (bo unused).
+// The backward. x, g (the upstream gradient) and dx: [B, S, E] contiguous
+// float32; weights as the forward (bo unused).
 // mode 0: rate 0; 1: the mask regenerated from `seed` and `thresh`; 2: the
 // stored mask [B, H, S, S] read from `mask`. keep_t is 1 - rate in x's type
 // (the probabilities' divisor), keep_f in f32 (dP's divisor). partials
@@ -576,14 +555,9 @@ extern "C" int afr_fused_attention_bwd(const void* x, const void* g, const float
                                        const float* bq, const float* bk, const float* bv,
                                        const float* bo, const unsigned char* mask,
                                        const int* seed, void* dx, float* partials, int B, int S,
-                                       int E, int H, int dtype, int mode, unsigned int thresh,
+                                       int E, int H, int mode, unsigned int thresh,
                                        float keep_t, float keep_f, void* stream) {
   const float* w[8] = {wq, wk, wv, wo, bq, bk, bv, bo};
-  if (dtype == 0)
-    return launch_bwd<float>(x, g, w, mask, seed, dx, partials, B, S, E, H, mode, thresh,
-                             keep_t, keep_f, stream);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(x, g, w, mask, seed, dx, partials, B, S, E, H, mode,
-                                     thresh, keep_t, keep_f, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_bwd<float>(x, g, w, mask, seed, dx, partials, B, S, E, H, mode, thresh, keep_t,
+                           keep_f, stream);
 }

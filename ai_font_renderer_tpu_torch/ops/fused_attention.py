@@ -3,8 +3,12 @@ the CUDA kernels, their plain versions and the autograd functions.
 
 ``fused_attention`` and ``fused_attention2`` are the port's counterparts of
 the JAX package's two entry points (ai_font_renderer_tpu/ops/
-fused_attention.py). Both are ``torch.autograd.Function``s over
-csrc/fused_attention.cu, giving gradients to x and to all eight weights:
+fused_attention.py). Both are ``torch.autograd.Function``s, giving
+gradients to x and to all eight weights, over two CUDA sources chosen by
+x's dtype alone: bf16 takes the tensor-core kernels of
+csrc/attention_mma.cu (``attention_mma_fwd``, ``attention_mma_bwd``), f32
+the CUDA-core kernels of csrc/fused_attention.cu (f32 products on tensor
+cores would be TF32). Either way:
 
 * v1 (``fused_attention``): forward K5 (``_fwd_kernel``), backward K6
   (``_bwd_kernel``), which regenerates the dropout mask from the seed;
@@ -25,7 +29,8 @@ backward is the TPU kernel's backward written out line by line
 (``fused_attention_backward_reference``). Each kernel keeps its launch
 count: ``fused_attention.launches`` (K5), ``fused_attention2.launches``
 (K7), ``fused_attention_backward.launches`` (K6) and
-``fused_attention2_backward.launches`` (K8).
+``fused_attention2_backward.launches`` (K8); ``attention_mma_fwd.launches``
+and ``attention_mma_bwd.launches`` count the bf16 ones among them.
 """
 
 from __future__ import annotations
@@ -44,10 +49,20 @@ KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
 _SMEM_LIMIT = 232448
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_MMA_SIGNATURES = {
+    "afr_attention_mma_fwd": ([_P] * 12 + [_I] * 5 + [ctypes.c_uint, ctypes.c_float, _P], _I),
+    "afr_attention_mma_bwd": (
+        [_P] * 14 + [_I] * 5 + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, _P], _I,
+    ),
+    "afr_attention_mma_shape_ok": ([_I, _I, _I], _I),
+    "afr_attention_mma_fwd_smem_bytes": ([_I], ctypes.c_longlong),
+    "afr_attention_mma_bwd_smem_bytes": ([_I], ctypes.c_longlong),
+    "afr_attention_mma_blocks_per_sm": ([_I] * 4, _I),
+}
 _SIGNATURES = {
-    "afr_fused_attention_fwd": ([_P] * 12 + [_I] * 6 + [ctypes.c_uint, ctypes.c_float, _P], _I),
+    "afr_fused_attention_fwd": ([_P] * 12 + [_I] * 5 + [ctypes.c_uint, ctypes.c_float, _P], _I),
     "afr_fused_attention_bwd": (
-        [_P] * 14 + [_I] * 6 + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, _P], _I,
+        [_P] * 14 + [_I] * 5 + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, _P], _I,
     ),
     "afr_fused_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "afr_fused_attention_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
@@ -181,19 +196,23 @@ def _check_cuda(x: torch.Tensor, weights, heads: int) -> None:
             raise ValueError(f"{k} must be a contiguous float32 {shape} tensor on {x.device}")
 
 
-def _dtype_code(x: torch.Tensor) -> int:
-    return 0 if x.dtype == torch.float32 else 1
+def _mode(rate: float, stored: bool) -> int:
+    """Where the keep mask comes from: 0 rate 0, 1 drawn from the seed, 2
+    stored (the forward stores it, the backward reads it)."""
+    return 0 if rate == 0.0 else (2 if stored else 1)
 
 
 def _launch_fwd(x, weights, heads, rate, seed, store_mask, entry):
     """K5 (or K7 with ``store_mask``) on CUDA tensors -> (out, mask or
-    None); adds one to ``entry.launches``."""
+    None): bf16 on the tensor cores (``attention_mma_fwd``), f32 on the
+    CUDA cores; adds one to ``entry.launches``."""
     _check_cuda(x, weights, heads)
+    if x.dtype == torch.bfloat16:
+        out, mask = attention_mma_fwd(x, weights, heads, rate, seed, store_mask)
+        entry.launches += int(x.shape[0] > 0)
+        return out, mask
     B, S, E = x.shape
-    dropout = rate > 0.0
-    # The mask's source (0: rate 0, 1: drawn, 2: drawn and stored) picks the
-    # kernel's build.
-    mode = 0 if not dropout else (2 if store_mask else 1)
+    mode = _mode(rate, store_mask)
     lib = _build.load("fused_attention", _SIGNATURES)
     if lib.afr_fused_attention_smem_bytes(S, E, mode) > _SMEM_LIMIT:
         raise ValueError(f"S={S}, E={E} needs more shared memory than one block has")
@@ -205,9 +224,9 @@ def _launch_fwd(x, weights, heads, rate, seed, store_mask, entry):
         rc = lib.afr_fused_attention_fwd(
             x.data_ptr(), *(weights[k].data_ptr() for k in KEYS), out.data_ptr(),
             mask.data_ptr() if mask is not None else None,
-            seed.data_ptr() if dropout else None,
-            B, S, E, heads, _dtype_code(x), mode,
-            keep_threshold(rate) if dropout else 0, keep_in(rate, x.dtype) if dropout else 1.0,
+            seed.data_ptr() if mode else None,
+            B, S, E, heads, mode,
+            keep_threshold(rate) if mode else 0, keep_in(rate, x.dtype) if mode else 1.0,
             _build.stream_handle(x.device),
         )
     if rc != 0:
@@ -223,13 +242,9 @@ def _split_grads(flat: torch.Tensor, E: int) -> dict:
     return grads
 
 
-def _launch_bwd(x, g, weights, heads, rate, seed, mask, entry):
-    """K6 (mask regenerated from ``seed``) or K8 (``mask`` read) on CUDA
-    tensors -> (dx, grads); adds one to ``entry.launches``. Each block
-    writes its sample's parameter gradients; their sum over the batch is
-    taken here, so no two runs differ in a bit."""
-    _check_cuda(x, weights, heads)
-    B, S, E = x.shape
+def _check_backward(x, g, heads, mask):
+    """g in x's dtype, contiguous; raise on a g or mask that does not fit."""
+    B, S, _ = x.shape
     g = g.to(x.dtype).contiguous()
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g must match x {tuple(x.shape)} on {x.device}, got {tuple(g.shape)} on {g.device}")
@@ -238,6 +253,22 @@ def _launch_bwd(x, g, weights, heads, rate, seed, mask, entry):
         or not mask.is_contiguous() or mask.device != x.device
     ):
         raise ValueError(f"mask must be a contiguous uint8 {(B, heads, S, S)} tensor on {x.device}")
+    return g
+
+
+def _launch_bwd(x, g, weights, heads, rate, seed, mask, entry):
+    """K6 (mask regenerated from ``seed``) or K8 (``mask`` read) on CUDA
+    tensors -> (dx, grads): bf16 on the tensor cores
+    (``attention_mma_bwd``), f32 on the CUDA cores; adds one to
+    ``entry.launches``. Each block writes its sample's parameter gradients;
+    their sum over the batch is taken here, so no two runs differ in a bit."""
+    _check_cuda(x, weights, heads)
+    if x.dtype == torch.bfloat16:
+        dx, grads = attention_mma_bwd(x, g, weights, heads, rate, seed, mask)
+        entry.launches += int(x.shape[0] > 0)
+        return dx, grads
+    B, S, E = x.shape
+    g = _check_backward(x, g, heads, mask)
     lib = _build.load("fused_attention", _SIGNATURES)
     if lib.afr_fused_attention_bwd_smem_bytes(S, E, heads) > _SMEM_LIMIT:
         raise ValueError(f"S={S}, E={E}, H={heads} needs more shared memory than one block has")
@@ -245,12 +276,12 @@ def _launch_bwd(x, g, weights, heads, rate, seed, mask, entry):
     partials = torch.empty(B, 4 * E * E + 4 * E, dtype=torch.float32, device=x.device)
     if B == 0:
         return dx, _split_grads(partials.sum(0), E)
-    mode = 0 if rate == 0.0 else (2 if mask is not None else 1)
+    mode = _mode(rate, mask is not None)
     with torch.cuda.device(x.device):
         rc = lib.afr_fused_attention_bwd(
             x.data_ptr(), g.data_ptr(), *(weights[k].data_ptr() for k in KEYS),
             mask.data_ptr() if mode == 2 else None, seed.data_ptr() if mode == 1 else None,
-            dx.data_ptr(), partials.data_ptr(), B, S, E, heads, _dtype_code(x), mode,
+            dx.data_ptr(), partials.data_ptr(), B, S, E, heads, mode,
             keep_threshold(rate) if mode else 0, keep_in(rate, x.dtype),
             float(np.float32(1.0 - rate)), _build.stream_handle(x.device),
         )
@@ -258,6 +289,102 @@ def _launch_bwd(x, g, weights, heads, rate, seed, mask, entry):
         raise RuntimeError(f"fused attention backward kernel launch failed: CUDA error {rc}")
     entry.launches += 1
     return dx, _split_grads(partials.sum(0), E)
+
+
+def _check_mma(x, weights, heads):
+    """What the tensor-core kernels take; raise on anything else."""
+    _check_cuda(x, weights, heads)
+    B, S, E = x.shape
+    if x.dtype != torch.bfloat16:
+        raise ValueError("the tensor-core attention kernels take bfloat16 x")
+    lib = _build.load("attention_mma", _MMA_SIGNATURES)
+    if not lib.afr_attention_mma_shape_ok(S, E, heads):
+        raise ValueError(
+            f"the bf16 attention kernels take a head width E/H of 8, 16 or 32, E <= 32 and "
+            f"S <= 112, not S={S}, E={E}, H={heads}")
+    return lib
+
+
+def attention_mma_fwd(x, weights, heads: int, dropout_rate: float = 0.0, seed=None, store_mask: bool = False):
+    """The bf16 attention forward on tensor cores (csrc/attention_mma.cu):
+    the bf16 build of K5 and of K7 (``store_mask``: the keep mask is
+    stored, uint8 [B, H, S, S]). x [B, S, E] bf16 -> (out, mask or None).
+    On a CPU tensor the plain version. ``attention_mma_fwd.launches``
+    counts its launches."""
+    _check_seed(seed, x, dropout_rate)
+    rate = float(dropout_rate)
+    if x.device.type == "cpu":
+        mask = _keep_mask(x, heads, rate, seed) if rate > 0.0 else None
+        out = fused_attention_reference(x, weights, heads, mask=mask, rate=rate)
+        return out, mask.to(torch.uint8) if store_mask and mask is not None else None
+    lib = _check_mma(x, weights, heads)
+    B, S, E = x.shape
+    mode = _mode(rate, store_mask)
+    out = torch.empty_like(x)
+    mask = torch.empty(B, heads, S, S, dtype=torch.uint8, device=x.device) if mode == 2 else None
+    if B == 0:
+        return out, mask
+    with torch.cuda.device(x.device):
+        rc = lib.afr_attention_mma_fwd(
+            x.data_ptr(), *(weights[k].data_ptr() for k in KEYS), out.data_ptr(),
+            mask.data_ptr() if mask is not None else None, seed.data_ptr() if mode else None,
+            B, S, E, heads, mode, keep_threshold(rate) if mode else 0,
+            keep_in(rate, x.dtype) if mode else 1.0, _build.stream_handle(x.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"bf16 attention forward launch failed: CUDA error {rc}")
+    attention_mma_fwd.launches += 1
+    return out, mask
+
+
+def attention_mma_bwd(x, g, weights, heads: int, dropout_rate: float = 0.0, seed=None, mask=None):
+    """The bf16 attention backward on tensor cores (csrc/attention_mma.cu):
+    the bf16 build of K8 (``mask`` read) and of K6 (the mask regenerated
+    from ``seed``). x, g [B, S, E] -> (dx bf16, {key: f32 gradient}). On a
+    CPU tensor the plain version. ``attention_mma_bwd.launches`` counts its
+    launches."""
+    rate = float(dropout_rate)
+    if x.device.type == "cpu":
+        if rate > 0.0 and mask is None:
+            _check_seed(seed, x, rate)
+            mask = _keep_mask(x, heads, rate, seed)
+        return fused_attention_backward_reference(x, g, weights, heads, rate, mask)
+    lib = _check_mma(x, weights, heads)
+    g = _check_backward(x, g, heads, mask)
+    mode = _mode(rate, mask is not None)
+    if mode == 1:
+        _check_seed(seed, x, rate)
+    B, S, E = x.shape
+    dx = torch.empty_like(x)
+    partials = torch.empty(B, 4 * E * E + 4 * E, dtype=torch.float32, device=x.device)
+    if B == 0:
+        return dx, _split_grads(partials.sum(0), E)
+    with torch.cuda.device(x.device):
+        rc = lib.afr_attention_mma_bwd(
+            x.data_ptr(), g.data_ptr(), *(weights[k].data_ptr() for k in KEYS),
+            mask.data_ptr() if mode == 2 else None, seed.data_ptr() if mode == 1 else None,
+            dx.data_ptr(), partials.data_ptr(), B, S, E, heads, mode,
+            keep_threshold(rate) if mode else 0, keep_in(rate, x.dtype),
+            float(np.float32(1.0 - rate)), _build.stream_handle(x.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"bf16 attention backward launch failed: CUDA error {rc}")
+    attention_mma_bwd.launches += 1
+    return dx, _split_grads(partials.sum(0), E)
+
+
+def attention_mma_attributes(S: int = 100, E: int = 32, heads: int = 4) -> dict:
+    """The tensor-core kernels as the card holds them at this shape (one
+    block per sample, one warp per 16 rows): block size, dynamic shared
+    memory and blocks per SM (occupancy), forward and backward."""
+    lib = _build.load("attention_mma", _MMA_SIGNATURES)
+    threads = 32 * ((S + 15) // 16)
+    return {
+        name: {"threads": threads, "smem_bytes": smem(S),
+               "blocks_per_sm": lib.afr_attention_mma_blocks_per_sm(which, S, E, heads)}
+        for which, (name, smem) in enumerate((("fwd", lib.afr_attention_mma_fwd_smem_bytes),
+                                               ("bwd", lib.afr_attention_mma_bwd_smem_bytes)))
+    }
 
 
 def _keep_mask(x, heads, rate, seed):
@@ -350,3 +477,5 @@ fused_attention.launches = 0
 fused_attention2.launches = 0
 fused_attention_backward.launches = 0
 fused_attention2_backward.launches = 0
+attention_mma_fwd.launches = 0
+attention_mma_bwd.launches = 0

@@ -9,8 +9,10 @@ Phases, each of which raises on failure, each with its seconds:
 
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
    the port from csrc/ (one nvcc per source, all at once), with the build
-   time, ptxas's registers and shared memory for each kernel, and the K2
-   and K3 GEMMs' launch shapes and dynamic shared memory.
+   time, ptxas's registers and shared memory for each kernel, the K2
+   and K3 GEMMs' launch shapes and dynamic shared memory, and the bf16
+   attention kernels' (csrc/attention_mma.cu) block size, dynamic shared
+   memory and blocks per SM.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it: max abs error against the stated tolerance,
    and times from CUDA events for the kernel, the plain version, one
@@ -23,9 +25,11 @@ Phases, each of which raises on failure, each with its seconds:
    masked cotangent, W and x), K2's TMA + wgmma GEMM on K-major operands
    and K3's on MN-major ones (a persistent grid of 128 x 256 tiles); the
    attention forward with
-   dropout 0.2 (K5 in f32, K7 in bf16 and f32), K7's stored mask byte for
-   byte against the plain Philox mask, and the backward kernels K6 and K8
-   at batch 1024 in f32 and bf16; K9 (K4 on a transposed x) at M = 1024,
+   dropout 0.2 (K5 in f32 and bf16, K7 in bf16 and f32; in bf16 both are
+   the tensor-core forward, K5's without storing the mask), K7's stored
+   mask byte for byte against the plain Philox mask, and the backward
+   kernels K6 and K8 at batch 1024 in f32 and bf16 (bf16: the tensor-core
+   backward); K9 (K4 on a transposed x) at M = 1024,
    then the K4/K9 A/B of tools/ab_kernel_micro.py, whose launches are K9's
    main path.
 3. Render: full-width (123M-parameter) weights from a seed, saved and
@@ -51,8 +55,9 @@ Phases, each of which raises on failure, each with its seconds:
    configuration, the trained weights through the npz file and rendered
    against the plain path, steps/s of each configuration, and a profile of
    one step.
-6. One JSON line listing every kernel (K1-K9, the operand pass, and the
-   GEMMs of K2 and K3) with its launches on the
+6. One JSON line listing every kernel (K1-K9, the operand pass, the
+   GEMMs of K2 and K3, and the bf16 attention forward and backward on
+   tensor cores) with its launches on the
    main paths (phases 3, 4 and 5 and the K4/K9 A/B; counts are set to 0
    just before each drive and read just after), its error and its times.
 
@@ -167,7 +172,7 @@ def _attn_peak(dt) -> float:
 
 
 def phase_build() -> float:
-    from ai_font_renderer_tpu_torch.ops import _build
+    from ai_font_renderer_tpu_torch.ops import _build, attention_mma_attributes
     from ai_font_renderer_tpu_torch.ops.fused_output import gemm_attributes
 
     t0 = time.perf_counter()
@@ -182,6 +187,8 @@ def phase_build() -> float:
     # The GEMMs' shared memory is dynamic, which ptxas does not report.
     for kind, name in (("k1", "K1"), ("tn", "K2"), ("mn", "K3")):
         print(f"[build] {name} GEMM as loaded: {json.dumps(gemm_attributes(kind))}", flush=True)
+    print(f"[build] bf16 attention (K5-K8 in bf16, tensor cores) at S=100, E=32, H=4: "
+          f"{json.dumps(attention_mma_attributes())}", flush=True)
     print(f"[build] kernels built in {seconds:.2f} s", flush=True)
     return seconds
 
@@ -674,7 +681,10 @@ def check_attention_dropout(bsz=1024, s=100, e=32, heads=4) -> list[dict]:
     seed = torch.tensor([20240917], dtype=torch.int32, device="cuda")
     shape = (bsz, heads, s, s)
     rows = []
-    for name, dt in (("K5 v1", torch.float32), ("K7 v2", torch.bfloat16), ("K7 v2", torch.float32)):
+    # K5 in bf16 is K7's kernel with the mask drawn and not stored: its
+    # time beside K7's shows what the mask's store costs.
+    for name, dt in (("K5 v1", torch.float32), ("K7 v2", torch.bfloat16), ("K5 v1", torch.bfloat16),
+                     ("K7 v2", torch.float32)):
         x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
         v2 = name.startswith("K7")
         out2, mask = fused_attention2(x, w, heads, DROPOUT, seed, return_mask=True)
@@ -706,6 +716,7 @@ def check_attention_dropout(bsz=1024, s=100, e=32, heads=4) -> list[dict]:
             "max_abs_err": err,
             "tol": tol,
             "keep_rate": keep_rate,
+            "mask": "stored" if v2 else "drawn",
             "mask_equal": masks_equal,
             "ms": time_ms(lambda: fn(x, w, heads, DROPOUT, seed), 50),
             # The plain mask (Philox in int64 tensor ops) and the plain
@@ -915,6 +926,8 @@ def _kernel_fns():
         "fused_dw_adamw": ops.fused_dw_adamw,
         "fused_attention_backward": ops.fused_attention_backward,
         "fused_attention2_backward": ops.fused_attention2_backward,
+        "attention_mma_fwd": ops.attention_mma_fwd,
+        "attention_mma_bwd": ops.attention_mma_bwd,
         "fused_dw_adamw_xt": ops.fused_dw_adamw_xt,
     }
 
@@ -1150,9 +1163,11 @@ def phase_serve(params, workdir: str) -> dict:
           f"W's bf16 shadow built {builds} times", flush=True)
     if builds > 1:
         raise AssertionError(f"serve built W's shadow {builds} times, want once at most")
-    for name in ("fused_output", "gemm_bf16_bias_clamp", "fused_attention2"):
+    for name in ("fused_output", "gemm_bf16_bias_clamp", "fused_attention2", "attention_mma_fwd"):
         if counts[name] <= 0:
             raise AssertionError(f"serve never launched {name}: {counts}")
+    print(f"[serve] bf16 attention forward on tensor cores launched {counts['attention_mma_fwd']} times",
+          flush=True)
     return counts
 
 
@@ -1351,7 +1366,8 @@ def phase_train(workdir: str, card: str) -> dict:
         "attn_v2_fast": (fast, TrainConfig(**run, handrolled_bwd=True, remat_frontend="dots")),
     }
     attention_kernels = {"attn_v1": ("fused_attention", "fused_attention_backward"),
-                         "attn_v2_fast": ("fused_attention2", "fused_attention2_backward")}
+                         "attn_v2_fast": ("fused_attention2", "fused_attention2_backward",
+                                          "attention_mma_fwd", "attention_mma_bwd")}
     counts = {k: 0 for k in _counts()}
     results = {}
     for name, (mcfg, tcfg) in configs.items():
@@ -1377,6 +1393,10 @@ def phase_train(workdir: str, card: str) -> dict:
         for kernel in attention_kernels.get(name, ()):
             if run_counts[kernel] <= 0:
                 raise AssertionError(f"train {name} never launched {kernel}: {run_counts}")
+        if name == "attn_v2_fast":
+            print(f"[train {name}] bf16 attention on tensor cores: forward launched "
+                  f"{run_counts['attention_mma_fwd']} times, backward {run_counts['attention_mma_bwd']}",
+                  flush=True)
         results[name] = res
     for kernel in ("fused_output", "gemm_bf16_bias_clamp", "fused_output_dx", "round_bf16", "gemm_bf16_tn",
                    "fused_output_dw", "gemm_bf16_mn", "fused_dw_adamw"):
@@ -1509,7 +1529,7 @@ def main() -> int:
             f"B=1024,S=100,E=32,H=4,float32,dropout={DROPOUT}", launches["fused_attention"],
         ),
         _kernel_entry(
-            "fused_attention2_fwd (v2 entry point, K7)", src + "fused_attention.cu",
+            "fused_attention2_fwd (v2 entry point, K7)", src + "attention_mma.cu",
             "ai_font_renderer_tpu/ops/fused_attention.py:374",
             [r for r in attn_rows if r["shape"].endswith("bfloat16")]
             + [r for n, r in drop_rows if n.startswith("K7")],
@@ -1521,9 +1541,22 @@ def main() -> int:
             f"B=1024,S=100,E=32,H=4,float32,dropout={DROPOUT}", launches["fused_attention_backward"],
         ),
         _kernel_entry(
-            "fused_attention2_bwd (v2, mask read, K8)", src + "fused_attention.cu",
+            "fused_attention2_bwd (v2, mask read, K8)", src + "attention_mma.cu",
             "ai_font_renderer_tpu/ops/fused_attention.py:427", k8_rows,
             f"B=1024,S=100,E=32,H=4,bfloat16,dropout={DROPOUT}", launches["fused_attention2_backward"],
+        ),
+        _kernel_entry(
+            "attention_mma_fwd (bf16 K5/K7 on tensor cores)", src + "attention_mma.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:374",
+            [r for r in attn_rows if r["shape"].endswith("bfloat16")]
+            + [r for n, r in drop_rows if r["shape"].endswith("bfloat16,dropout=0.2")],
+            f"B=1024,S=100,E=32,H=4,bfloat16,dropout={DROPOUT}", launches["attention_mma_fwd"],
+        ),
+        _kernel_entry(
+            "attention_mma_bwd (bf16 K6/K8 on tensor cores)", src + "attention_mma.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:427",
+            [r for r in k8_rows + k6_rows if "bfloat16" in r["shape"]],
+            f"B=1024,S=100,E=32,H=4,bfloat16,dropout={DROPOUT}", launches["attention_mma_bwd"],
         ),
         _kernel_entry(
             "fused_output_dx", src + "fused_output.cu",

@@ -21,6 +21,7 @@ import torch
 from ai_font_renderer_tpu import config as jcfg
 from ai_font_renderer_tpu.models import font_renderer as jfr
 from ai_font_renderer_tpu.ops.fused_attention import _bwd2 as jax_bwd2
+from ai_font_renderer_tpu.ops.fused_attention import _fwd2 as jax_fwd2
 from ai_font_renderer_tpu.ops.fused_attention import fused_attention as jax_fa
 from ai_font_renderer_tpu.ops.fused_attention import fused_attention2 as jax_fa2
 from ai_font_renderer_tpu.ops.fused_dw_adamw import fused_dw_adamw as jax_fused_dw_adamw
@@ -28,6 +29,8 @@ from ai_font_renderer_tpu.train import step as jstep
 from ai_font_renderer_tpu_torch import config as tcfg
 from ai_font_renderer_tpu_torch.models import font_renderer as tfr
 from ai_font_renderer_tpu_torch.ops import (
+    attention_mma_bwd,
+    attention_mma_fwd,
     fused_attention,
     fused_attention2,
     fused_attention2_backward,
@@ -45,12 +48,12 @@ RATE = 0.2
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
-def _inputs(bsz=B, s=S, seed=0):
+def _inputs(bsz=B, s=S, seed=0, e=E):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((bsz, s, E)).astype(np.float32)
-    w = {k: rng.uniform(-0.3, 0.3, (E, E)).astype(np.float32) for k in KEYS[:4]}
-    w.update({k: (rng.standard_normal(E) * 0.1).astype(np.float32) for k in KEYS[4:]})
-    r = rng.standard_normal((bsz, s, E)).astype(np.float32)  # a fixed cotangent
+    x = rng.standard_normal((bsz, s, e)).astype(np.float32)
+    w = {k: rng.uniform(-0.3, 0.3, (e, e)).astype(np.float32) for k in KEYS[:4]}
+    w.update({k: (rng.standard_normal(e) * 0.1).astype(np.float32) for k in KEYS[4:]})
+    r = rng.standard_normal((bsz, s, e)).astype(np.float32)  # a fixed cotangent
     return x, w, r
 
 
@@ -64,8 +67,8 @@ def _seed(value=1234):
     return torch.tensor([value], dtype=torch.int32)
 
 
-def _mask(seed=None, bsz=B, s=S):
-    return philox.dropout_keep(seed if seed is not None else _seed(), (bsz, H, s, s), RATE)
+def _mask(seed=None, bsz=B, s=S, heads=H):
+    return philox.dropout_keep(seed if seed is not None else _seed(), (bsz, heads, s, s), RATE)
 
 
 # --- Philox -----------------------------------------------------------------
@@ -183,49 +186,68 @@ def _jnp_fwd2(x, w, heads, rate, mask):
     return (out + w["bo"]).reshape(bsz, s, e).astype(dt)
 
 
-@pytest.mark.parametrize(
-    "dt,atol",
-    # As at rate 0 (tests/test_torch_ops.py): 2e-5 in f32; 0.05 in bf16,
-    # where the plain version rounds where the model's attention does.
-    [("f32", 2e-5), ("bf16", 0.05)],
-)
-def test_rate_02_forward_matches_the_kernel_math(dt, atol):
+# (B, S, E, H): the shape these tests began with; the model's shape, which
+# the bf16 kernels pad to S = 112; an odd S with two heads of width 8.
+KERNEL_SHAPES = {"": (B, S, E, H), "-model": (2, 100, 32, 4), "-odd": (2, 7, 16, 2)}
+
+
+def _shape_cases(tols):
+    """(dt, tolerance, shape) cases; the first shape keeps the ids the
+    tests had before the other shapes were added."""
+    return [
+        pytest.param(dt, tol, shape, id=f"{dt}-{tol}{tag}")
+        for tag, shape in KERNEL_SHAPES.items()
+        for dt, tol in tols
+    ]
+
+
+# As at rate 0 (tests/test_torch_ops.py): 2e-5 in f32; 0.05 in bf16, where
+# the plain version rounds where the model's attention does.
+@pytest.mark.parametrize("dt,atol,shape", _shape_cases([("f32", 2e-5), ("bf16", 0.05)]))
+def test_rate_02_forward_matches_the_kernel_math(dt, atol, shape):
     """Both entry points at rate 0.2 against _fwd2_kernel's math in jnp fed
-    the port's Philox mask; the v2 mask returned is that mask."""
+    the port's Philox mask; the v2 mask returned is that mask. And the
+    plain forward fed the mask that the JAX _fwd2 (the Pallas kernel in
+    interpret mode) drew and stored against that kernel's output."""
+    bsz, s, e, heads = shape
     tdt, jdt = DTYPES[dt]
-    x, w, _ = _inputs()
-    mask = _mask().to(torch.uint8)
-    want = _jnp_fwd2(jnp.asarray(x).astype(jdt), {k: jnp.asarray(v) for k, v in w.items()}, H, RATE,
-                     jnp.asarray(mask.numpy()))
+    x, w, _ = _inputs(bsz, s, e=e)
+    mask = _mask(bsz=bsz, s=s, heads=heads).to(torch.uint8)
+    jx = jnp.asarray(x).astype(jdt)
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    want = _jnp_fwd2(jx, jw, heads, RATE, jnp.asarray(mask.numpy()))
     tx, tw = _torch(x, w, tdt)
-    got1 = fused_attention(tx, tw, H, RATE, _seed())
-    got2, mask2 = fused_attention2(tx, tw, H, RATE, _seed(), return_mask=True)
+    got1 = fused_attention(tx, tw, heads, RATE, _seed())
+    got2, mask2 = fused_attention2(tx, tw, heads, RATE, _seed(), return_mask=True)
     assert torch.equal(mask2, mask) and torch.equal(got1, got2) and got1.dtype == tdt
     np.testing.assert_allclose(got1.float().numpy(), np.asarray(want, np.float32), atol=atol)
+    jout, (_, _, jmask) = jax_fwd2(heads, RATE, bsz, bsz, True, jx, jw, 1234)
+    plain = fused_attention_reference(tx, tw, heads, mask=torch.from_numpy(np.array(jmask)), rate=RATE)
+    np.testing.assert_allclose(plain.float().numpy(), np.asarray(jout, np.float32), atol=atol)
 
 
-@pytest.mark.parametrize(
-    "dt,tol",
-    # Relative to the largest value (dx: its own; the weights: the largest
-    # of the eight). f32: sums in another order. bf16: both sides round
-    # dlogits, dq, dk, dv and attn to bf16, and an f32 sum that differs in
-    # its last bits may round to the other bf16 neighbour (2^-8 relative).
-    [("f32", 1e-5), ("bf16", 2e-2)],
-)
-def test_rate_02_backward_matches_jax_bwd2_given_the_same_mask(dt, tol):
+# Relative to the largest value (dx: its own; the weights: the largest of
+# the eight). f32: sums in another order. bf16: both sides round dlogits,
+# dq, dk, dv and attn to bf16, and an f32 sum that differs in its last bits
+# may round to the other bf16 neighbour (2^-8 relative).
+@pytest.mark.parametrize("dt,tol,shape", _shape_cases([("f32", 1e-5), ("bf16", 2e-2)]))
+def test_rate_02_backward_matches_jax_bwd2_given_the_same_mask(dt, tol, shape):
     """The port's plain backward with the port's mask against the JAX
     package's _bwd2 (the Pallas _bwd2_kernel in interpret mode) called with
     that same uint8 mask; K6's and K8's plain paths agree bit for bit."""
+    bsz, s, e, heads = shape
     tdt, jdt = DTYPES[dt]
-    x, w, r = _inputs()
-    mask = _mask().to(torch.uint8)
+    x, w, r = _inputs(bsz, s, e=e)
+    mask = _mask(bsz=bsz, s=s, heads=heads).to(torch.uint8)
     jx = jnp.asarray(x).astype(jdt)
     jw = {k: jnp.asarray(v) for k, v in w.items()}
-    jdx, jdw, _ = jax_bwd2(H, RATE, 8, 8, True, (jx, jw, jnp.asarray(mask.numpy())), jnp.asarray(r).astype(jdt))
+    bb = min(8, bsz)
+    jdx, jdw, _ = jax_bwd2(heads, RATE, bb, bb, True, (jx, jw, jnp.asarray(mask.numpy())),
+                           jnp.asarray(r).astype(jdt))
     tx, tw = _torch(x, w, tdt)
     g = torch.from_numpy(r).to(tdt)
-    dx, dw = fused_attention2_backward(tx, g, tw, H, RATE, mask)
-    dx1, dw1 = fused_attention_backward(tx, g, tw, H, RATE, _seed())
+    dx, dw = fused_attention2_backward(tx, g, tw, heads, RATE, mask)
+    dx1, dw1 = fused_attention_backward(tx, g, tw, heads, RATE, _seed())
     assert torch.equal(dx, dx1) and all(torch.equal(dw[k], dw1[k]) for k in KEYS)
     jdx = np.asarray(jdx, np.float32)
     assert dx.dtype == tdt
@@ -233,6 +255,39 @@ def test_rate_02_backward_matches_jax_bwd2_given_the_same_mask(dt, tol):
     gmax = max(float(np.abs(jdw[k]).max()) for k in KEYS)
     for k in KEYS:
         assert np.abs(dw[k].numpy() - np.asarray(jdw[k])).max() <= tol * gmax, k
+
+
+@pytest.mark.parametrize("shape", [KERNEL_SHAPES["-model"], KERNEL_SHAPES["-odd"]], ids=["model", "odd"])
+def test_tensor_core_wrappers_on_cpu_take_the_plain_versions(shape):
+    """The bf16 tensor-core kernels' wrappers on CPU tensors give the entry
+    points' plain results bit for bit (stored and regenerated mask alike)
+    and count no launch."""
+    bsz, s, e, heads = shape
+    x, w, r = _inputs(bsz, s, e=e)
+    tx, tw = _torch(x, w, torch.bfloat16)
+    g = torch.from_numpy(r).to(torch.bfloat16)
+    before = (attention_mma_fwd.launches, attention_mma_bwd.launches)
+    out, mask = attention_mma_fwd(tx, tw, heads, RATE, _seed(), store_mask=True)
+    want, want_mask = fused_attention2(tx, tw, heads, RATE, _seed(), return_mask=True)
+    assert torch.equal(out, want) and torch.equal(mask, want_mask)
+    want_dx, want_dw = fused_attention2_backward(tx, g, tw, heads, RATE, mask)
+    for dx, dw in (attention_mma_bwd(tx, g, tw, heads, RATE, mask=mask),
+                   attention_mma_bwd(tx, g, tw, heads, RATE, seed=_seed())):
+        assert torch.equal(dx, want_dx) and all(torch.equal(dw[k], want_dw[k]) for k in KEYS)
+    assert (attention_mma_fwd.launches, attention_mma_bwd.launches) == before
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.2, 0.25, 0.5, 0.7])
+def test_keep_inverse_rounds_as_the_division(rate):
+    """The bf16 tensor-core kernels scale kept probabilities by RN(1/keep)
+    instead of dividing by keep (csrc/attention_mma.cu, keep_inverse): for
+    every positive finite bf16 value the product rounds to the same bf16 as
+    the quotient."""
+    keep = torch.tensor(1.0 - rate, dtype=torch.bfloat16).float()
+    inv = torch.tensor(np.float32(1.0 / np.float64(keep.item())))
+    bits = torch.arange(1, 0x7F80, dtype=torch.int32).to(torch.int16)
+    p = bits.view(torch.bfloat16).float()
+    assert torch.equal((p * inv).to(torch.bfloat16), (p / keep).to(torch.bfloat16))
 
 
 # --- dropout semantics (tests/test_fused_attention.py:77-102, 187-211) ------

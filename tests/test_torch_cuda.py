@@ -13,6 +13,8 @@ import torch
 
 from ai_font_renderer_tpu_torch.ops.philox import dropout_keep
 from ai_font_renderer_tpu_torch.ops import (
+    attention_mma_bwd,
+    attention_mma_fwd,
     bf16_shadow,
     fused_attention,
     fused_attention2,
@@ -593,6 +595,85 @@ def test_attention_autograd_launches_forward_and_backward(cuda, stored):
     want = fused_attention_backward_reference(
         x.detach(), 2 * out.detach(), {k: v.detach() for k, v in w.items()}, 4, 0.2, mask)
     _assert_grads_close((x.grad, {k: v.grad for k, v in w.items()}), want, BWD_TOL[torch.float32])
+
+
+# The bf16 tensor-core kernels: the test shapes above (S = 7 is odd, d = 32
+# at H = 1) and the model's at the batches of render, serve and training.
+MMA_SHAPES = ATTN_SHAPES + [(1, 100, 32, 4), (15, 100, 32, 4), (64, 100, 32, 4), (1024, 100, 32, 4)]
+
+
+def _mma_counts():
+    return attention_mma_fwd.launches, attention_mma_bwd.launches
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("bsz,s,e,heads", MMA_SHAPES)
+def test_tensor_core_attention_matches_plain(cuda, rate, bsz, s, e, heads):
+    """The bf16 forward and backward on tensor cores against the plain
+    versions fed the plain mask (tolerances as above: 0.05 forward, 2e-2
+    of the largest value backward); the stored mask equals the plain mask
+    byte for byte; v1 and v2 give the same bits, and so do K6 and K8, twice;
+    each call launches its kernel once."""
+    x, w = _attn_inputs(bsz, s, e, cuda, torch.bfloat16)
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    g = g.to(torch.bfloat16)
+    seed = _seed(cuda)
+    want_mask = dropout_keep(seed, (bsz, heads, s, s), rate).to(torch.uint8) if rate else None
+    before = _mma_counts()
+    out1 = fused_attention(x, w, heads, rate, seed)
+    out2, mask = fused_attention2(x, w, heads, rate, seed, return_mask=True)
+    assert _mma_counts() == (before[0] + 2, before[1])
+    assert torch.equal(out1, out2) and out1.dtype == torch.bfloat16
+    if rate:
+        assert torch.equal(mask, want_mask)
+    else:
+        assert mask is None
+    want = fused_attention_reference(x, w, heads, mask=want_mask, rate=rate)
+    torch.testing.assert_close(out1.float(), want.float(), atol=0.05, rtol=0)
+    k6 = fused_attention_backward(x, g, w, heads, rate, seed)
+    k8 = fused_attention2_backward(x, g, w, heads, rate, want_mask)
+    again = fused_attention2_backward(x, g, w, heads, rate, want_mask)
+    assert _mma_counts() == (before[0] + 2, before[1] + 3)
+    _assert_grads_close(k8, fused_attention_backward_reference(x, g, w, heads, rate, want_mask),
+                        BWD_TOL[torch.bfloat16])
+    for other in (k6, again):
+        assert torch.equal(k8[0], other[0]) and all(torch.equal(k8[1][k], other[1][k]) for k in KEYS)
+
+
+@pytest.mark.parametrize("stored", [False, True], ids=["v1", "v2"])
+def test_tensor_core_attention_through_autograd(cuda, stored):
+    """A bf16 call through autograd launches the tensor-core forward and
+    backward once each, and the entry point's own kernels once each."""
+    x, w = _attn_inputs(4, 100, 32, cuda, torch.bfloat16)
+    x = x.clone().requires_grad_()
+    w = {k: v.clone().requires_grad_() for k, v in w.items()}
+    fn, bwd = (fused_attention2, fused_attention2_backward) if stored else (fused_attention, fused_attention_backward)
+    before = (*_mma_counts(), fn.launches, bwd.launches)
+    fn(x, w, 4, 0.2, _seed(cuda)).float().square().sum().backward()
+    assert (*_mma_counts(), fn.launches, bwd.launches) == tuple(c + 1 for c in before)
+    assert x.grad.dtype == torch.bfloat16 and all(v.grad is not None for v in w.values())
+
+
+def test_f32_attention_still_takes_the_cuda_core_kernels(cuda):
+    """An f32 call launches the f32 kernels and not the tensor-core ones."""
+    x, w = _attn_inputs(2, 100, 32, cuda, torch.float32)
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    before = (*_mma_counts(), fused_attention2.launches, fused_attention2_backward.launches)
+    out, mask = fused_attention2(x, w, 4, 0.2, _seed(cuda), return_mask=True)
+    fused_attention2_backward(x, g, w, 4, 0.2, mask)
+    assert (*_mma_counts(), fused_attention2.launches, fused_attention2_backward.launches) == (
+        before[0], before[1], before[2] + 1, before[3] + 1)
+
+
+def test_tensor_core_attention_refuses_what_it_cannot_take(cuda):
+    x, w = _attn_inputs(2, 8, 32, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention_mma_fwd(x.float(), w, 4)
+    with pytest.raises(ValueError, match="head width"):
+        attention_mma_fwd(x, w, 8)  # d = 4
+    long_x, _ = _attn_inputs(1, 113, 32, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="S <= 112"):
+        fused_attention2(long_x, w, 4)
 
 
 @pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["mu_f32", "mu_bf16"])

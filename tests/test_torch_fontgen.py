@@ -37,6 +37,14 @@ def atlas():
     return tfg.bake_atlas(T_FIRACODE)
 
 
+@pytest.fixture(scope="module")
+def jax_cache(tmp_path_factory):
+    """A cache directory of this module's own for the JAX package's bakers.
+    Their default cache is shared by every test process and written in
+    place, so a reader in another process could find a half-written file."""
+    return str(tmp_path_factory.mktemp("jax_cache"))
+
+
 def _u8(sheets: np.ndarray) -> np.ndarray:
     return np.round(sheets * 255).astype(np.uint8)
 
@@ -56,9 +64,9 @@ def test_generate_corpus_equal():
 
 
 @pytest.mark.parametrize("spec_kw", [{}, SMALL], ids=["full", "small"])
-def test_bake_atlas_tables_equal(spec_kw):
+def test_bake_atlas_tables_equal(spec_kw, jax_cache):
     got = tfg.bake_atlas(T_FIRACODE, SheetSpec(**spec_kw))
-    want = jfg.bake_atlas(FIRACODE_PATH, JaxSheetSpec(**spec_kw))
+    want = jfg.bake_atlas(FIRACODE_PATH, JaxSheetSpec(**spec_kw), cache_dir=jax_cache)
     np.testing.assert_array_equal(got.table, want.table)
     for field in ("x0", "y0", "advances_px"):
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
@@ -79,9 +87,9 @@ def test_atlas_cache_is_the_ports_own(tmp_path):
     assert '"torch_atlas"' in src and '"atlas"' not in src
 
 
-def test_build_layouts_equal(atlas, tmp_path):
+def test_build_layouts_equal(atlas, tmp_path, jax_cache):
     got_codes, got_grids = tfg.build_layouts(atlas, 2000, cache_dir=str(tmp_path / "t"))
-    jatlas = jfg.bake_atlas(FIRACODE_PATH)
+    jatlas = jfg.bake_atlas(FIRACODE_PATH, cache_dir=jax_cache)
     want_codes, want_grids = jds.build_layouts(jatlas, 2000, cache_dir=str(tmp_path / "j"))
     np.testing.assert_array_equal(got_codes, want_codes)
     np.testing.assert_array_equal(got_grids, want_grids)
@@ -126,7 +134,7 @@ def test_native_rasterizer_equals_python(atlas):
         np.testing.assert_allclose(got[i], want, atol=1e-5)
 
 
-def test_synthesized_sheets_equal_host_oracle(atlas):
+def test_synthesized_sheets_equal_host_oracle(atlas, jax_cache):
     """torch synthesis (CPU) vs the numpy oracle, 2000 samples, byte-exact;
     and the port's oracle vs the JAX package's."""
     _, grids = tfg.build_layouts(atlas, 2000)
@@ -134,16 +142,17 @@ def test_synthesized_sheets_equal_host_oracle(atlas):
     got = _u8(sheets.synthesize_sheets(ops, torch.from_numpy(grids.astype(np.int32))).numpy())
     host = sheets.synthesize_sheets_host(atlas, grids)
     np.testing.assert_array_equal(got, _u8(host))
-    jatlas = jfg.bake_atlas(FIRACODE_PATH)
+    jatlas = jfg.bake_atlas(FIRACODE_PATH, cache_dir=jax_cache)
     np.testing.assert_array_equal(host[:200], jfg.synthesize_sheets_host(jatlas, grids[:200]))
 
 
-def test_build_device_dataset_matches_jax():
+def test_build_device_dataset_matches_jax(jax_cache):
     """The port's device dataset (on the CPU) against the JAX package's at
     the small geometry of tests/test_train.py."""
     spec = SheetSpec(**SMALL)
     got = tds.build_device_dataset(tfg.bake_atlas(T_FIRACODE, spec), 96, synth_batch=32, device="cpu")
-    want = jds.build_device_dataset(jfg.bake_atlas(FIRACODE_PATH, JaxSheetSpec(**SMALL)), 96, synth_batch=32)
+    jatlas = jfg.bake_atlas(FIRACODE_PATH, JaxSheetSpec(**SMALL), cache_dir=jax_cache)
+    want = jds.build_device_dataset(jatlas, 96, synth_batch=32, cache_dir=jax_cache)
     assert got.codes.dtype == torch.int32 and got.targets_u8.dtype == torch.uint8
     np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
     np.testing.assert_array_equal(got.targets_u8.numpy(), np.asarray(want.targets_u8))
@@ -193,10 +202,10 @@ def test_font_is_monospace_and_proportional_refusal():
         tds.require_monospace(MONTSERRAT_PATH)
 
 
-def test_wrap_and_layout_equal_jax():
+def test_wrap_and_layout_equal_jax(jax_cache):
     from ai_font_renderer_tpu.fontgen import layout as jlayout
 
-    jatlas = jfg.bake_atlas(FIRACODE_PATH)
+    jatlas = jfg.bake_atlas(FIRACODE_PATH, cache_dir=jax_cache)
     texts = ["HELLO  WORLD", "   ", "A" * 140, "AB CD " * 9, ""]
     spec = SheetSpec()
     adv = tfg.AdvanceTable(PRINTABLE_ASCII, jatlas.advances_px)
