@@ -1,77 +1,105 @@
 // Fused dW = X^T @ gm and the AdamW update of W, in place.
 //
 // Replaces the TPU kernel ai_font_renderer_tpu/ops/fused_dw_adamw.py:_kernel
-// (K4). x [M, K] bf16 (the projection's rounded input), gm [M, N] bf16 (the
-// masked cotangent of the clamped output, already rounded), and the output
-// projection's W [K, N] f32 with its AdamW moments mu [K, N] (f32 or bf16)
-// and nu [K, N] f32. Per (K, N) tile the kernel sums dW over M on the tensor
-// cores (WMMA, bf16 x bf16, f32 accumulation) and, while the tile is still
-// in shared memory, applies optax's AdamW to the same elements:
+// (K4). x16 [M, K] bf16 (the projection's rounded input), gm16 [M, N] bf16
+// (the masked cotangent of the clamped output, already rounded), and the
+// output projection's W [K, N] f32 with its AdamW moments mu [K, N] (f32 or
+// bf16) and nu [K, N] f32. dW is summed on the tensor cores and each of its
+// elements, still in a register, applies optax's AdamW to the same element:
 //
 //   mu = b1*mu + (1-b1)*dW          (f32; stored in mu's type, nearest even)
 //   nu = b2*nu + (1-b2)*dW^2
 //   w  = w - lr*(mu*c1 / (sqrt(nu*c2) + eps) + wd*w)
 //
 // with c1 = 1/(1-b1^t), c2 = 1/(1-b2^t) computed in f32 by the caller. dW
-// never reaches device memory.
+// never reaches device memory. When the caller gives a shadow buffer
+// [K, ld_shadow] bf16, the update also writes bf16_rn(w) there (pad columns
+// N <= c < ld_shadow zero): W's bf16 shadow, the operand K1 and K2 read,
+// which then needs no pass of its own over W.
 //
 // What bounds it on an H100 (K = 6400, N = 19200, M = 1024): the optimizer
-// state, not the product. w is read and written (983 MB), mu in bf16 read and
-// written (492 MB), nu read and written (983 MB), x and gm read once (52 MB):
-// about 2.51 GB, 0.75 ms at 3.35 TB/s, against 0.254 ms for 251.7 GFLOP of
-// bf16 products. Every element of w, mu and nu is touched by exactly one
-// thread, once, in the epilogue, with rows of 128 contiguous elements per
-// tile, so the state moves at its minimum; the product part is K3's loop
-// (csrc/fused_output.cu) on bf16 operands, which read half the bytes of K3's
-// and need no mask. wgmma, TMA and a persistent schedule are later work.
+// state, not the product. w and nu are read and written in f32 (1966 MB),
+// mu in bf16 (492 MB), x and gm read once (52 MB): about 2.51 GB, 0.75 ms at
+// 3.35 TB/s, against 0.254 ms for 251.7 GFLOP of bf16 products. The shadow
+// adds 245.8 MB (0.82 ms); an f32 mu 492 MB (1.04 ms, 1.11 with the shadow).
 //
-// Any M, K and N: rows and columns past the edge load as zero and are not
-// updated. 16-byte loads are used when the rows of both operands are
-// multiples of 8 elements long and both are 16-byte aligned; otherwise every
-// element is loaded on its own.
+// Design: the product is K3's GEMM (csrc/sm90_gemm.cuh,
+// gemm_bf16_bmn_kernel): TMA loads of x16 and gm16 into a ring of swizzled
+// stages, wgmma m64n256k16 with MN-major operands, 128 x 256 tiles on a
+// persistent grid; its epilogue policy here is the update. The update moves
+// 655 KB of state a tile against the product's 4.2 GFLOP, so the epilogue
+// is most of the kernel, and how the state moves decides its time (H100,
+// chip_smoke.py --k4-times, bf16 mu, M = 1024):
+//   * loads and stores of each thread's own elements, in the accumulator
+//     layout (8 rows x 32 bytes a warp access) or staged through shared
+//     memory by rows, moved the state at under 1 TB/s (2.8-3.4 ms): few
+//     warps, short runs along each row of w;
+//   * TMA chunks of 64 rows x 16 columns, a warpgroup's, double buffered:
+//     1.87 ms, still 64-byte runs along each row;
+//   * TMA chunks of 8 rows x 64 or 128 columns, each warp its own (its 8
+//     rows of one register half), one buffer a warp: 1.31-1.43 ms. Long
+//     runs along the rows of w, nu and mu are what the device memory needs.
+// So each consumer warp walks its 16 x 256 block in chunks of CROWS x CCOLS:
+// lane 0 loads the chunk's w, nu and mu by TMA into the warp's buffer, the
+// warp updates it there from its accumulators, and lane 0 stores w, nu, mu
+// (and the shadow) back by TMA, which clips at the edges. The buffers take
+// one stage of the ring (3 stages, not 4). Where a row of the state is no
+// whole number of 16-byte units (N odd, say), the update goes element by
+// element instead.
 //
 // A second entry point replaces the TPU kernel tools/ab_kernel_micro.py:
-// _kernel_xt (K9), K4 with X already transposed: xt [K, M] bf16, so the A
-// operand of dW = xt @ gm is row-major and its tile loads along M; b1 0.9,
-// b2 0.99 and wd 5e-4 are fixed by the caller as in that tool. Everything
-// else is K4's kernel (the template argument XT).
+// _kernel_xt (K9), K4 with X already transposed: xt16 [K, M] bf16, the
+// K-major A operand of dW = xt16 @ gm16 (K1's A side of the same GEMM); b1
+// 0.9, b2 0.99 and wd 5e-4 are fixed by the caller as in that tool.
+//
+// Any M, K and N: TMA fills rows and columns past the operands' and the
+// state's edges with zeros and clips its stores there. The operands' rows
+// must lie a multiple of 8 elements apart (the wrapper pads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
-#include <type_traits>
 
-using namespace nvcuda;
+#include "sm90_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // rows of K per tile
-constexpr int BN = 128;  // columns of N per tile
-constexpr int BK = 32;   // rows of M per step of the contraction
-constexpr int THREADS = 256;
-constexpr int A_LD = BM + 8;   // x tile [32 m][64 k]: the column-major A operand
-constexpr int AT_LD = BK + 8;  // xt tile [64 k][32 m]: the row-major A operand (K9)
-constexpr int B_LD = BN + 8;   // gm tile [32 m][128 n]
-constexpr int C_LD = BN + 4;   // floats
-constexpr int A_ELEMS = BK * A_LD > BM * AT_LD ? BK * A_LD : BM * AT_LD;
-constexpr int B_ELEMS = BK * B_LD;
-constexpr int A_VECS = BK * BM / 8 / THREADS;  // 8 bf16 per 16-byte load: 1
-constexpr int B_VECS = BK * BN / 8 / THREADS;  // 2
-constexpr int SMEM = (A_ELEMS + B_ELEMS) * 2 > BM * C_LD * 4 ? (A_ELEMS + B_ELEMS) * 2
-                                                            : BM * C_LD * 4;
+// The state's chunks in shared memory: CROWS = 8 rows x CCOLS columns of w,
+// nu and mu (a warp's rows of one register half, h, by a quarter of the
+// tile's columns), loaded by TMA, updated in place and stored by TMA, with
+// the chunk of W's shadow beside them. Each consumer warp walks its chunks
+// of a tile through a buffer of its own; the ring gives up a stage to make
+// room.
+constexpr int CROWS = 8, CCOLS = 64;
+constexpr int PARTS = sm90::MN_BN / CCOLS;  // chunks across the tile
+constexpr int NCHUNK = 2 * PARTS;           // a warp's chunks of a tile
+constexpr int RING_STAGES = 3;
+constexpr int W_OFF = 0;  // f32 [CROWS][CCOLS]
+constexpr int NU_OFF = W_OFF + CROWS * CCOLS * 4;
+constexpr int MU_OFF = NU_OFF + CROWS * CCOLS * 4;  // f32 or bf16 [CROWS][CCOLS]
+constexpr int SH_OFF = MU_OFF + CROWS * CCOLS * 4;  // bf16 [CROWS][CCOLS]
+constexpr int BUF_BYTES = SH_OFF + CROWS * CCOLS * 2;
+constexpr int BARS_OFF = 8 * BUF_BYTES;  // one mbarrier a warp's buffer
+static_assert(NCHUNK % 2 == 0, "each buffer's barrier must end a tile at its first parity");
+static_assert(RING_STAGES * sm90::MN_STAGE_BYTES + 8 * BUF_BYTES + 2048 <= 227 * 1024,
+              "the ring and the chunks must fit an SM's shared memory");
 
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ p, size_t row_off,
-                                       int col, int row_ok, int ncols, int vec) {
-  if (!row_ok) return make_uint4(0u, 0u, 0u, 0u);
-  const __nv_bfloat16* q = p + row_off + col;
-  if (vec && col + 7 < ncols) return *reinterpret_cast<const uint4*>(q);
-  unsigned short h[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) h[j] = col + j < ncols ? __bfloat16_as_ushort(q[j]) : 0;
-  return make_uint4(h[0] | (unsigned)h[1] << 16, h[2] | (unsigned)h[3] << 16,
-                    h[4] | (unsigned)h[5] << 16, h[6] | (unsigned)h[7] << 16);
+template <typename T>
+__device__ __forceinline__ float2 smem_ld2(const T* p);
+template <>
+__device__ __forceinline__ float2 smem_ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <>
+__device__ __forceinline__ float2 smem_ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void smem_st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void smem_st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -79,161 +107,238 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// XT false: x is [M, K] (K4); true: x is xt [K, M] (K9).
-template <typename MuT, bool XT>
-__global__ void __launch_bounds__(THREADS)
-fused_dw_adamw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gm,
-                      float* __restrict__ w, MuT* __restrict__ mu, float* __restrict__ nu,
-                      int M, int K, int N, int vec, float lr, float wd, float b1, float b2,
-                      float c1, float c2, float eps) {
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + A_ELEMS;
-  float* Cs = reinterpret_cast<float*>(smem);  // the epilogue's dW tile
-
-  const int k0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4;  // 2 x 4 warps, each a 32 x 32 piece of the tile
-  const int wn = warp % 4;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  uint4 ra[A_VECS], rb[B_VECS];
-  auto fetch = [&](int m0) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      if constexpr (XT) {
-        const int r = f / (BK / 8);
-        const int c = (f % (BK / 8)) * 8;
-        ra[i] = load8(x, (size_t)(k0 + r) * M, m0 + c, k0 + r < K, M, vec);
-      } else {
-        const int r = f / (BM / 8);
-        const int c = (f % (BM / 8)) * 8;
-        ra[i] = load8(x, (size_t)(m0 + r) * K, k0 + c, m0 + r < M, K, vec);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      const int r = f / (BN / 8);
-      const int c = (f % (BN / 8)) * 8;
-      rb[i] = load8(gm, (size_t)(m0 + r) * N, n0 + c, m0 + r < M, N, vec);
-    }
+// The AdamW epilogue policy of sm90::gemm_bf16_bmn_kernel (see
+// sm90_gemm.cuh for the interface).
+template <typename MuT, bool SHADOW>
+struct EpiAdamW {
+  struct Params {
+    CUtensorMap map_w, map_nu, map_mu, map_shadow;  // boxes of CCOLS x CROWS; TMA path only
+    float* w;
+    MuT* mu;
+    float* nu;
+    __nv_bfloat16* shadow;  // [R, ld_shadow], SHADOW only
+    int ld_shadow;
+    int tma;  // the state goes by TMA (its rows 16-byte aligned), else element by element
+    float lr, wd, b1, b2, c1, c2, eps;
   };
+  static constexpr bool TMA_STORE = false, BIAS = false;
+  static constexpr int STAGES = RING_STAGES;
+  static constexpr int SMEM = BARS_OFF + 8 * 8;
 
-  fetch(0);
-  for (int m0 = 0; m0 < M; m0 += BK) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      if constexpr (XT)
-        *reinterpret_cast<uint4*>(&As[(f / (BK / 8)) * AT_LD + (f % (BK / 8)) * 8]) = ra[i];
-      else
-        *reinterpret_cast<uint4*>(&As[(f / (BM / 8)) * A_LD + (f % (BM / 8)) * 8]) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int f = tid + i * THREADS;
-      *reinterpret_cast<uint4*>(&Bs[(f / (BN / 8)) * B_LD + (f % (BN / 8)) * 8]) = rb[i];
-    }
-    __syncthreads();
-    if (m0 + BK < M) fetch(m0 + BK);  // in flight while the tensor cores work
+  __device__ static void init(unsigned char* smem) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + BARS_OFF);
+    for (int i = 0; i < 8; ++i) sm90::mbar_init(&bars[i], 1);
+  }
 
+  // The update of one element, in the order of the TPU kernel.
+  __device__ static float update(float dw, float& m, float& v, float w, float lr, float wd,
+                                 float b1, float b2, float c1, float c2, float eps) {
+    m = b1 * m + (1.f - b1) * dw;
+    v = b2 * v + (1.f - b2) * dw * dw;
+    return w - lr * ((m * c1) / (sqrtf(v * c2) + eps) + wd * w);
+  }
+
+  // Register 4j + 2h + c of d is dW at row 16 * warp + lane / 4 + 8h and
+  // column 8j + 2 * (lane % 4) + c of the warpgroup's 64 x 256 block.
+  __device__ static void epilogue(float (&d)[128], const Params& p, unsigned char* smem, int row0,
+                                  int n0, int R, int N) {
+    // The scalars in registers: read through p after a store, they would be
+    // read again, since a store through a pointer may alias them.
+    const float lr = p.lr, wd = p.wd, b1 = p.b1, b2 = p.b2, c1 = p.c1, c2 = p.c2, eps = p.eps;
+    const int lane = threadIdx.x % 32;
+    const int rr0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;  // the thread's first row
+    const int cc0 = 2 * (lane % 4);                               // and column
+    if (p.tma == 0) {
+      // Element by element, where a row of the state is no whole number of
+      // 16-byte units: the fallback for shapes the TMA cannot take.
+      float* const pw = p.w;
+      MuT* const pmu = p.mu;
+      float* const pnu = p.nu;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      using ALayout = typename std::conditional<XT, wmma::row_major, wmma::col_major>::type;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
+      for (int j = 0; j < sm90::MN_BN / 8; ++j) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if constexpr (XT)
-          wmma::load_matrix_sync(fa[i], &As[(wm * 32 + i * 16) * AT_LD + kk], AT_LD);
-        else
-          wmma::load_matrix_sync(fa[i], &As[kk * A_LD + wm * 32 + i * 16], A_LD);
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + rr0 + 8 * h;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = n0 + 8 * j + cc0 + c;
+            if (r >= R || col >= p.ld_shadow) continue;
+            float wn = 0.f;
+            if (col < N) {
+              const size_t e = (size_t)r * N + col;
+              float m = to_f32(pmu[e]), v = pnu[e];
+              wn = update(d[4 * j + 2 * h + c], m, v, pw[e], lr, wd, b1, b2, c1, c2, eps);
+              pw[e] = wn;
+              store(&pmu[e], m);
+              pnu[e] = v;
+            }
+            if constexpr (SHADOW) p.shadow[(size_t)r * p.ld_shadow + col] = __float2bfloat16_rn(wn);
+          }
+        }
       }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * B_LD + wn * 32 + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      return;
     }
-    __syncthreads();
-  }
-
+    const int warp = (threadIdx.x % 128) / 32;
+    const int wid = threadIdx.x / 32 - 4;  // consumer warp 0-7
+    unsigned char* b = smem + wid * BUF_BYTES;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem + BARS_OFF) + wid;
+    constexpr uint32_t LOAD_BYTES = CROWS * CCOLS * (4 + 4 + sizeof(MuT));
+    // Chunk k: rows 16 * warp + 8 * (k / PARTS) of the warpgroup's, columns
+    // CCOLS * (k % PARTS) of the tile's.
+    auto row_of = [&](int k) { return row0 + 16 * warp + 8 * (k / PARTS); };
+    auto col_of = [&](int k) { return n0 + CCOLS * (k % PARTS); };
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int k = 0; k < NCHUNK; ++k) {
+      if (lane == 0) {
+        // The buffer is loaded again only once the TMA stores of the last
+        // chunk have read it (the warp's stores are all its lane 0's).
+        sm90::bulk_wait_read<0>();
+        sm90::mbar_expect_tx(bar, LOAD_BYTES);  // full boxes, even out of bounds
+        sm90::tma_load_2d(b + W_OFF, &p.map_w, bar, col_of(k), row_of(k));
+        sm90::tma_load_2d(b + NU_OFF, &p.map_nu, bar, col_of(k), row_of(k));
+        sm90::tma_load_2d(b + MU_OFF, &p.map_mu, bar, col_of(k), row_of(k));
+      }
+      sm90::mbar_wait(bar, k & 1);
+      float* sw = reinterpret_cast<float*>(b + W_OFF);
+      float* snu = reinterpret_cast<float*>(b + NU_OFF);
+      MuT* smu = reinterpret_cast<MuT*>(b + MU_OFF);
+      __nv_bfloat16* ssh = reinterpret_cast<__nv_bfloat16*>(b + SH_OFF);
+      const int h = k / PARTS;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * C_LD + wn * 32 + j * 16],
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int idx = tid; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN;
-    const int c = idx % BN;
-    if (k0 + r >= K || n0 + c >= N) continue;
-    const size_t e = (size_t)(k0 + r) * N + n0 + c;
-    const float dw = Cs[r * C_LD + c];
-    const float m = b1 * to_f32(mu[e]) + (1.f - b1) * dw;
-    const float v = b2 * nu[e] + (1.f - b2) * dw * dw;
-    const float p = w[e];
-    w[e] = p - lr * ((m * c1) / (sqrtf(v * c2) + eps) + wd * p);
-    store(&mu[e], m);
-    nu[e] = v;
+      for (int jl = 0; jl < CCOLS / 8; ++jl) {
+        const int j = (k % PARTS) * (CCOLS / 8) + jl;
+        const int at = (lane / 4) * CCOLS + 8 * jl + cc0;
+        float2 w = smem_ld2(sw + at), m = smem_ld2(smu + at), v = smem_ld2(snu + at);
+        w.x = update(d[4 * j + 2 * h], m.x, v.x, w.x, lr, wd, b1, b2, c1, c2, eps);
+        w.y = update(d[4 * j + 2 * h + 1], m.y, v.y, w.y, lr, wd, b1, b2, c1, c2, eps);
+        smem_st2(sw + at, w.x, w.y);
+        smem_st2(smu + at, m.x, m.y);
+        smem_st2(snu + at, v.x, v.y);
+        // Pad columns of the shadow (N .. ld_shadow) get zeros: TMA filled
+        // the state there with zeros.
+        if constexpr (SHADOW) smem_st2(ssh + at, w.x, w.y);
+      }
+      sm90::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        // The stores clip at the state's edges (R rows, N columns).
+        sm90::tma_store_2d(&p.map_w, b + W_OFF, col_of(k), row_of(k));
+        sm90::tma_store_2d(&p.map_nu, b + NU_OFF, col_of(k), row_of(k));
+        sm90::tma_store_2d(&p.map_mu, b + MU_OFF, col_of(k), row_of(k));
+        if constexpr (SHADOW) sm90::tma_store_2d(&p.map_shadow, b + SH_OFF, col_of(k), row_of(k));
+        sm90::bulk_commit();
+      }
+    }
   }
+};
+
+// A TMA map over the matrix [rows, cols] of `dtype` (elem bytes each), row
+// stride ld elements, boxes of CCOLS columns by CROWS rows, no swizzle,
+// zero fill out of bounds. Returns 0 or the CUresult.
+int encode_chunk_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem, const void* base,
+                     int rows, int cols, int ld) {
+  sm90::EncodeTiledFn fn = sm90::encode_tiled_fn();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)CCOLS, (cuuint32_t)CROWS};
+  const cuuint32_t estr[2] = {1, 1};
+  return (int)fn(map, dtype, 2, const_cast<void*>(base), dims, strides, box, estr,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <typename MuT, bool XT>
-int launch(const void* x, const void* gm, float* w, void* mu, float* nu, int M, int K, int N,
-           float lr, float wd, float b1, float b2, float c1, float c2, float eps,
-           void* stream) {
-  const int vec = ((XT ? M : K) % 8 == 0) && (N % 8 == 0) &&
-                  ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gm)) % 16 == 0);
-  const dim3 grid((K + BM - 1) / BM, (N + BN - 1) / BN);
-  fused_dw_adamw_kernel<MuT, XT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gm), w,
-      static_cast<MuT*>(mu), nu, M, K, N, vec, lr, wd, b1, b2, c1, c2, eps);
-  return (int)cudaGetLastError();
+template <bool XT, typename MuT, bool SHADOW>
+int launch(const void* a, const void* b, float* w, void* mu, float* nu, void* shadow, int M, int K,
+           int N, int lda, int ldb, int lds, float lr, float wd, float b1, float b2, float c1,
+           float c2, float eps, cudaStream_t stream) {
+  using Epi = EpiAdamW<MuT, SHADOW>;
+  CUtensorMap map_a, map_b;
+  // A is x16 [M, K] (MN-major, boxes of 64 x 64) or xt16 [K, M] (K-major,
+  // boxes of 128 rows by 64 columns).
+  int rc = XT ? sm90::encode_bf16_map(&map_a, a, K, M, lda, sm90::MN_BM)
+              : sm90::encode_bf16_map(&map_a, a, M, K, lda, sm90::BK);
+  if (rc != 0) return 1000 + rc;
+  rc = sm90::encode_bf16_map(&map_b, b, M, N, ldb, sm90::BK);
+  if (rc != 0) return 1000 + rc;
+  typename Epi::Params p{};
+  p.w = w;
+  p.mu = static_cast<MuT*>(mu);
+  p.nu = nu;
+  p.shadow = static_cast<__nv_bfloat16*>(shadow);
+  p.ld_shadow = SHADOW ? lds : N;
+  p.lr = lr, p.wd = wd, p.b1 = b1, p.b2 = b2, p.c1 = c1, p.c2 = c2, p.eps = eps;
+  // TMA takes rows whose stride is a multiple of 16 bytes, 16-byte aligned.
+  p.tma = (size_t)N * sizeof(MuT) % 16 == 0 && N % 4 == 0 &&
+          (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(nu) |
+           reinterpret_cast<uintptr_t>(mu)) % 16 == 0;
+  if (p.tma) {
+    const CUtensorMapDataType mu_type =
+        sizeof(MuT) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    rc = encode_chunk_map(&p.map_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w, K, N, N);
+    if (rc == 0) rc = encode_chunk_map(&p.map_nu, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, nu, K, N, N);
+    if (rc == 0) rc = encode_chunk_map(&p.map_mu, mu_type, sizeof(MuT), mu, K, N, N);
+    if (rc == 0 && SHADOW)
+      rc = encode_chunk_map(&p.map_shadow, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, shadow, K, lds, lds);
+    if (rc != 0) return 1000 + rc;
+  }
+  return sm90::launch_bmn<XT, Epi>(map_a, map_b, p, K, N, M, stream);
 }
 
 template <bool XT>
-int dispatch(const void* x, const void* gm, float* w, void* mu, float* nu, int M, int K, int N,
-             int mu_bf16, float lr, float wd, float b1, float b2, float c1, float c2, float eps,
-             void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
-  if (mu_bf16 == 0)
-    return launch<float, XT>(x, gm, w, mu, nu, M, K, N, lr, wd, b1, b2, c1, c2, eps, stream);
+int dispatch(const void* a, const void* b, float* w, void* mu, float* nu, void* shadow, int M,
+             int K, int N, int lda, int ldb, int lds, int mu_bf16, float lr, float wd, float b1,
+             float b2, float c1, float c2, float eps, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || lda < (XT ? M : K) || ldb < N || lda % 8 != 0 ||
+      ldb % 8 != 0 || (shadow != nullptr && (lds < N || lds % 8 != 0)))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(shadow)) % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(nu)) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(mu) % (mu_bf16 ? 2 : 4) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AFR_LAUNCH(MU, SH) \
+  launch<XT, MU, SH>(a, b, w, mu, nu, shadow, M, K, N, lda, ldb, lds, lr, wd, b1, b2, c1, c2, eps, s)
+  if (mu_bf16 == 0) return shadow ? AFR_LAUNCH(float, true) : AFR_LAUNCH(float, false);
   if (mu_bf16 == 1)
-    return launch<__nv_bfloat16, XT>(x, gm, w, mu, nu, M, K, N, lr, wd, b1, b2, c1, c2, eps,
-                                     stream);
+    return shadow ? AFR_LAUNCH(__nv_bfloat16, true) : AFR_LAUNCH(__nv_bfloat16, false);
+#undef AFR_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x [M, K] and gm [M, N] bf16; w and nu [K, N] f32; mu [K, N] f32 (mu_bf16 0)
-// or bf16 (mu_bf16 1); all contiguous. w, mu and nu are updated in place.
-// Launches on `stream` and returns cudaGetLastError(): 0 when the launch
-// was accepted.
-extern "C" int afr_fused_dw_adamw(const void* x, const void* gm, float* w, void* mu, float* nu,
-                                  int M, int K, int N, int mu_bf16, float lr, float wd, float b1,
-                                  float b2, float c1, float c2, float eps, void* stream) {
-  return dispatch<false>(x, gm, w, mu, nu, M, K, N, mu_bf16, lr, wd, b1, b2, c1, c2, eps, stream);
+// x16 [M, lda] and gm16 [M, ldb] bf16 (row strides multiples of 8 elements,
+// lda >= K, ldb >= N, 16-byte aligned; columns past K and N are not read);
+// w and nu [K, N] f32; mu [K, N] f32 (mu_bf16 0) or bf16 (mu_bf16 1); all
+// contiguous. w, mu and nu are updated in place; shadow, when not null, is
+// [K, lds] bf16 (lds a multiple of 8, >= N, 16-byte aligned) and receives
+// bf16_rn of the updated w, zeros in columns N .. lds - 1. Launches on
+// `stream` and returns cudaGetLastError(): 0 when the launch was accepted;
+// a failed tensor-map encode returns 1000 + its CUresult, and a build whose
+// registers would not cover setmaxnreg's request
+// cudaErrorInvalidConfiguration.
+extern "C" int afr_fused_dw_adamw(const void* x16, const void* gm16, float* w, void* mu, float* nu,
+                                  void* shadow, int M, int K, int N, int lda, int ldb, int lds,
+                                  int mu_bf16, float lr, float wd, float b1, float b2, float c1,
+                                  float c2, float eps, void* stream) {
+  return dispatch<false>(x16, gm16, w, mu, nu, shadow, M, K, N, lda, ldb, lds, mu_bf16, lr, wd, b1,
+                         b2, c1, c2, eps, stream);
 }
 
-// K9: as afr_fused_dw_adamw with xt [K, M] bf16 in place of x.
-extern "C" int afr_fused_dw_adamw_xt(const void* xt, const void* gm, float* w, void* mu, float* nu,
-                                     int M, int K, int N, int mu_bf16, float lr, float wd, float b1,
+// K9: as afr_fused_dw_adamw with xt16 [K, lda] (lda >= M) in place of x16.
+extern "C" int afr_fused_dw_adamw_xt(const void* xt16, const void* gm16, float* w, void* mu,
+                                     float* nu, void* shadow, int M, int K, int N, int lda,
+                                     int ldb, int lds, int mu_bf16, float lr, float wd, float b1,
                                      float b2, float c1, float c2, float eps, void* stream) {
-  return dispatch<true>(xt, gm, w, mu, nu, M, K, N, mu_bf16, lr, wd, b1, b2, c1, c2, eps, stream);
+  return dispatch<true>(xt16, gm16, w, mu, nu, shadow, M, K, N, lda, ldb, lds, mu_bf16, lr, wd,
+                        b1, b2, c1, c2, eps, stream);
+}
+
+// The kernel as built for the card, in the instantiation of the training
+// step (K4, bf16 mu, W's shadow written; the others differ only in their
+// registers, which ptxas reports): as afr_gemm_bf16_mn_attrs.
+extern "C" int afr_fused_dw_adamw_attrs(int* out) {
+  return sm90::bmn_attrs<false, EpiAdamW<__nv_bfloat16, true>>(out);
 }

@@ -171,45 +171,17 @@ extern "C" int afr_round_bf16(const float* src, const float* out, void* dst, int
   return (int)cudaGetLastError();
 }
 
-// A GEMM as built for the card: {registers a thread, static shared memory,
-// dynamic shared memory, threads a block, stages, BM, BN}; returns a CUDA
-// error.
-static int gemm_attrs(const void* kernel, int smem, int stages, int bm, int bn, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.sharedSizeBytes;
-  out[2] = smem;
-  out[3] = sm90::GEMM_THREADS;
-  out[4] = stages;
-  out[5] = bm;
-  out[6] = bn;
-  return 0;
-}
-
 extern "C" int afr_gemm_bf16_tn_attrs(int* out) {
-  return gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_tn_kernel), sm90::GEMM_SMEM,
-                    sm90::GEMM_STAGES, sm90::GEMM_BM, sm90::GEMM_BN, out);
+  return sm90::gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_tn_kernel),
+                          sm90::GEMM_SMEM, sm90::GEMM_STAGES, sm90::GEMM_BM, sm90::GEMM_BN, out);
 }
 
 extern "C" int afr_gemm_bf16_mn_attrs(int* out) {
-  return gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_bmn_kernel<false>),
-                    sm90::MN_SMEM, sm90::MN_STAGES, sm90::MN_BM, sm90::MN_BN, out);
+  return sm90::bmn_attrs<false, sm90::EpiStore>(out);
 }
 
 extern "C" int afr_gemm_bf16_bias_clamp_attrs(int* out) {
-  return gemm_attrs(reinterpret_cast<const void*>(sm90::gemm_bf16_bmn_kernel<true>),
-                    sm90::K1_SMEM, sm90::MN_STAGES, sm90::MN_BM, sm90::MN_BN, out);
-}
-
-// 0 when a GEMM was built with the registers that setmaxnreg's request
-// needs at launch, else a CUDA error.
-static int launch_regs_ok(int (*attrs)(int*)) {
-  int a[7];
-  const int rc = attrs(a);
-  if (rc != 0) return rc;
-  return a[0] < sm90::LAUNCH_REGS ? (int)cudaErrorInvalidConfiguration : 0;
+  return sm90::bmn_attrs<true, sm90::EpiBiasClamp>(out);
 }
 
 // K2's product: c [M, K] f32 = a [M, N] . b [K, N]^T, a and b bf16 with row
@@ -223,7 +195,7 @@ extern "C" int afr_gemm_bf16_tn(const void* a, const void* b, float* c, int M, i
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   if ((K + sm90::GEMM_BN - 1) / sm90::GEMM_BN > 65535) return (int)cudaErrorInvalidValue;
-  static const int regs_rc = launch_regs_ok(afr_gemm_bf16_tn_attrs);
+  static const int regs_rc = sm90::launch_regs_ok(afr_gemm_bf16_tn_attrs);
   if (regs_rc != 0) return regs_rc;
   CUtensorMap map_a, map_b;
   int rc = sm90::encode_bf16_map(&map_a, a, M, N, ld, sm90::GEMM_BM);
@@ -242,27 +214,6 @@ extern "C" int afr_gemm_bf16_tn(const void* a, const void* b, float* c, int M, i
   return (int)cudaGetLastError();
 }
 
-// gemm_bf16_bmn_kernel<K1> over C [R, N] and the contraction L, on a
-// persistent grid of at most one block an SM.
-template <bool K1>
-static int launch_bmn(const CUtensorMap& map_a, const CUtensorMap& map_b, const CUtensorMap& map_c,
-                      const float* bias, int R, int N, int L, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(sm90::gemm_bf16_bmn_kernel<K1>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)((R + sm90::MN_BM - 1) / sm90::MN_BM) *
-                          ((N + sm90::MN_BN - 1) / sm90::MN_BN);
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  sm90::gemm_bf16_bmn_kernel<K1><<<grid, sm90::GEMM_THREADS, smem, stream>>>(
-      map_a, map_b, map_c, bias, R, N, L);
-  return (int)cudaGetLastError();
-}
-
 // K3's product: c [K, N] f32 (row stride ldc, a multiple of 4, >= N) =
 // a[:, :K]^T . b[:, :N], a [M, lda] and b [M, ldb] bf16 (row strides
 // multiples of 8, lda >= K, ldb >= N), all 16-byte aligned; tiles of
@@ -274,17 +225,16 @@ extern "C" int afr_gemm_bf16_mn(const void* a, const void* b, float* c, int M, i
       ldb % 8 != 0 || ldc % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(a, b, c)) return (int)cudaErrorMisalignedAddress;
-  static const int regs_rc = launch_regs_ok(afr_gemm_bf16_mn_attrs);
-  if (regs_rc != 0) return regs_rc;
-  CUtensorMap map_a, map_b, map_c;
+  CUtensorMap map_a, map_b;
+  sm90::StoreParams p{};
   int rc = sm90::encode_bf16_map(&map_a, a, M, K, lda, sm90::BK);
   if (rc != 0) return 1000 + rc;
   rc = sm90::encode_bf16_map(&map_b, b, M, N, ldb, sm90::BK);
   if (rc != 0) return 1000 + rc;
-  rc = sm90::encode_f32_store_map(&map_c, c, K, N, ldc);
+  rc = sm90::encode_f32_store_map(&p.map_c, c, K, N, ldc);
   if (rc != 0) return 1000 + rc;
-  return launch_bmn<false>(map_a, map_b, map_c, nullptr, K, N, M, sm90::MN_SMEM,
-                           static_cast<cudaStream_t>(stream));
+  return sm90::launch_bmn<false, sm90::EpiStore>(map_a, map_b, p, K, N, M,
+                                                 static_cast<cudaStream_t>(stream));
 }
 
 // K1's product: c [M, N] f32 (row stride ldc, a multiple of 4, >= N) =
@@ -299,15 +249,15 @@ extern "C" int afr_gemm_bf16_bias_clamp(const void* a, const void* b, const floa
     return (int)cudaErrorInvalidValue;
   if (!aligned16(a, b, c) || reinterpret_cast<uintptr_t>(bias) % 4 != 0)
     return (int)cudaErrorMisalignedAddress;
-  static const int regs_rc = launch_regs_ok(afr_gemm_bf16_bias_clamp_attrs);
-  if (regs_rc != 0) return regs_rc;
-  CUtensorMap map_a, map_b, map_c;
+  CUtensorMap map_a, map_b;
+  sm90::StoreParams p{};
+  p.bias = bias;
   int rc = sm90::encode_bf16_map(&map_a, a, M, K, lda, sm90::MN_BM);
   if (rc != 0) return 1000 + rc;
   rc = sm90::encode_bf16_map(&map_b, b, K, N, ldb, sm90::BK);
   if (rc != 0) return 1000 + rc;
-  rc = sm90::encode_f32_store_map(&map_c, c, M, N, ldc);
+  rc = sm90::encode_f32_store_map(&p.map_c, c, M, N, ldc);
   if (rc != 0) return 1000 + rc;
-  return launch_bmn<true>(map_a, map_b, map_c, bias, M, N, K, sm90::K1_SMEM,
-                          static_cast<cudaStream_t>(stream));
+  return sm90::launch_bmn<true, sm90::EpiBiasClamp>(map_a, map_b, p, M, N, K,
+                                                    static_cast<cudaStream_t>(stream));
 }

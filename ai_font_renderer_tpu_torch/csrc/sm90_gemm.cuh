@@ -1,4 +1,4 @@
-// Three bf16 x bf16 -> f32 GEMMs for sm_90a, built from the same pieces: TMA
+// bf16 x bf16 -> f32 GEMMs for sm_90a, built from the same pieces: TMA
 // loads with the 128-byte swizzle into a ring of stages in dynamic shared
 // memory, a full and an empty mbarrier a stage, one producer warp and two
 // consumer warpgroups that run wgmma, and a barrier wait that traps after
@@ -8,21 +8,23 @@
 // A[M, N] . B[K, N]^T, both operands contiguous along the contraction axis
 // ("TN", the K-major no-transpose case of wgmma).
 //
-// gemm_bf16_bmn_kernel<false> is K3's product, dW = x16^T . gm16: C[K, N] =
-// A[M, K]^T . B[M, N], both operands contiguous along the output axes
-// ("MN-major", wgmma's two transpose bits set). Its design follows the TN
-// kernel's below, with four differences: tiles of 128 x 256 (m64n256k16,
-// 128 accumulators a consumer thread) from stages of 64 contraction rows;
-// MN-major descriptors; a persistent grid; and TMA stores of the result
-// from shared memory (see its own note further down). It contracts over
-// the batch, only 16 k-blocks at M = 1024, and writes a 491.5 MB dW, so
-// the epilogue matters as it does not for K2.
-//
-// gemm_bf16_bmn_kernel<true> is K1's product, out = clamp(x16 . w16 + b,
-// 0, 1): C[M, N] = A[M, K] . B[K, N] with A K-major (the TN kernel's A
-// side: one 128 x 64 box a stage, K-major descriptors, transpose bit 0) and
-// B MN-major (K3's B side: W as it is stored, transpose bit 1); bias and
-// clamp in the epilogue, before the TMA stores.
+// gemm_bf16_bmn_kernel<A_KMAJOR, Epi> computes C[R, N] = A . B[L, N] over
+// the contraction L with B MN-major (contiguous along N, wgmma's transpose
+// bit for B set) on tiles of 128 x 256 (m64n256k16, 128 accumulators a
+// consumer thread) from stages of 64 contraction rows, on a persistent
+// grid. A is MN-major (A [L, R], contiguous along R, transpose bit set) or
+// K-major (A [R, L], one 128 x 64 box a stage, K-major descriptors,
+// transpose bit 0). The epilogue policy Epi says what becomes of the
+// accumulators:
+//   * <false, EpiStore>: K3's product, dW = x16^T . gm16, stored as f32 by
+//     TMA from shared memory (see the kernel's own note further down). It
+//     contracts over the batch, only 16 k-blocks at M = 1024, and writes a
+//     491.5 MB dW, so the epilogue matters as it does not for K2.
+//   * <true, EpiBiasClamp>: K1's product, out = clamp(x16 . w16 + b, 0,
+//     1), W as it is stored; bias and clamp before the TMA stores.
+//   * <false or true, EpiAdamW> (csrc/fused_dw_adamw.cu): K4's and K9's
+//     dW = x16^T . gm16 (K9: xt16 . gm16, A K-major), never stored: each
+//     accumulator updates its element of W and its AdamW moments in place.
 //
 // TN design (one output tile of 128 x 200 per block, not persistent):
 //   * TMA 2-D tiled loads with the 128-byte swizzle fill a ring of five
@@ -360,10 +362,10 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 // contraction rows deep: A's 16 KB (two 64 x 64 boxes when A is MN-major,
 // one 128 x 64 box when it is K-major) and four 64 x 64 boxes of B, 8 KB
 // each (64 rows of one 128-byte swizzled row), 48 KB in all; four stages
-// fill 192 KB. Each consumer warpgroup has two epilogue buffers of 64 rows x
-// 32 floats (8 KB, 128-byte swizzle), 32 KB in all; K1 adds 1 KB for the
-// tile's bias. One block an SM, as for the TN kernel, with the same register
-// split (setmaxnreg 40 / 232, 168 at launch).
+// fill 192 KB. The TMA-store epilogue gives each consumer warpgroup two
+// epilogue buffers of 64 rows x 32 floats (8 KB, 128-byte swizzle), 32 KB in
+// all; K1 adds 1 KB for the tile's bias. One block an SM, as for the TN
+// kernel, with the same register split (setmaxnreg 40 / 232, 168 at launch).
 constexpr int MN_BM = 128;
 constexpr int MN_BN = 256;
 constexpr int MN_BOX_BYTES = BK * TILE_BYTES_PER_ROW;  // 8 KB
@@ -373,59 +375,89 @@ constexpr int MN_STAGE_BYTES = MN_A_BYTES + MN_B_BYTES;
 constexpr int MN_STAGES = 4;
 constexpr int MN_EPI_COLS = 32;                     // floats in one 128-byte row
 constexpr int MN_EPI_BYTES = 64 * MN_EPI_COLS * 4;  // 8 KB
-constexpr int MN_RING_BYTES = MN_STAGES * MN_STAGE_BYTES;
-constexpr int MN_SMEM = MN_RING_BYTES + 4 * MN_EPI_BYTES + 2 * MN_STAGES * 8 + 1024;
 constexpr int K1_BIAS_BYTES = MN_BN * 4;
-constexpr int K1_SMEM = MN_SMEM + K1_BIAS_BYTES;
-static_assert(K1_SMEM <= 227 * 1024, "the ring must fit an SM's shared memory");
 // A k16 step: 16 contraction rows of 128 bytes, in descriptor units (>> 4).
 constexpr int MN_K16_STEP = 16 * TILE_BYTES_PER_ROW >> 4;
 // A k16 step of a K-major operand: 32 bytes inside the swizzled row.
 constexpr int KMAJOR_K16_STEP = 32 >> 4;
 
+// Epilogue policies of gemm_bf16_bmn_kernel. Each names the kernel's
+// parameters (Params), the stages of its ring (STAGES) and the shared memory
+// its epilogue takes after the ring (SMEM). TMA_STORE: C leaves as f32
+// through the epilogue buffers and TMA stores (Params: the store map, and
+// for BIAS the bias added before a clamp to [0, 1]). Otherwise the policy's
+// own device functions run: Epi::init(smem) in thread 0 before any other
+// work, and Epi::epilogue(d, p, smem, row0, n0, R, N) in each consumer
+// warpgroup on its accumulators (row0: the warpgroup's first row of C, n0
+// the tile's first column), with the policy's shared memory.
+struct StoreParams {
+  CUtensorMap map_c;
+  const float* bias;  // EpiBiasClamp only
+};
+struct EpiStore {  // K3: C as it is
+  using Params = StoreParams;
+  static constexpr bool TMA_STORE = true, BIAS = false;
+  static constexpr int STAGES = MN_STAGES;
+  static constexpr int SMEM = 4 * MN_EPI_BYTES;
+};
+struct EpiBiasClamp {  // K1: clamp(C + bias, 0, 1)
+  using Params = StoreParams;
+  static constexpr bool TMA_STORE = true, BIAS = true;
+  static constexpr int STAGES = MN_STAGES;
+  static constexpr int SMEM = 4 * MN_EPI_BYTES + K1_BIAS_BYTES;
+};
+
+// The ring, the policy's shared memory, the barriers, and 1024 bytes to
+// align the ring by hand.
+template <typename Epi>
+constexpr int bmn_smem() {
+  return Epi::STAGES * MN_STAGE_BYTES + Epi::SMEM + 2 * Epi::STAGES * 8 + 1024;
+}
+constexpr int MN_SMEM = bmn_smem<EpiStore>();
+constexpr int K1_SMEM = bmn_smem<EpiBiasClamp>();
+static_assert(K1_SMEM <= 227 * 1024, "the ring must fit an SM's shared memory");
+
 // C[R, N] = A . B[L, N] over the contraction L, B MN-major:
-//   * K3 (K1 = false): A [L, R] MN-major, C = A^T . B, dW = x16^T . gm16;
-//   * K1 (K1 = true): A [R, L] K-major, C = A . B, out = x16 . w16, and the
-//     epilogue adds bias (N f32) and clamps to [0, 1].
+//   * A_KMAJOR false: A [L, R] MN-major, C = A^T . B (K3, K4);
+//   * A_KMAJOR true: A [R, L] K-major, C = A . B (K1, K9).
 // The maps give A and B as bf16 with boxes of 64 columns by 64 rows (A
-// K-major: by 128 rows), and C as f32 with boxes of 32 columns by 64 rows,
-// all with the 128-byte swizzle.
+// K-major: by 128 rows), and, for a TMA-store policy, C as f32 with boxes of
+// 32 columns by 64 rows, all with the 128-byte swizzle.
 //
 // Persistent schedule: the grid is at most one block an SM, and block b
 // takes tiles b, b + gridDim.x, ..., rows of C fastest, so the blocks that
 // share a column strip of B run together and all of A stays in L2. The
 // producer and the consumers count k-blocks across tiles (`it`), and stage
 // and parity come from that running count: the producer runs on through
-// the ring into the next tile while the consumers store the last one.
+// the ring into the next tile while the consumers finish the last one.
 // Within a tile a consumer frees stage it - 1 after wait_group 1, and the
-// tile's last stage after wait_group 0, before its stores. A warpgroup
+// tile's last stage after wait_group 0, before its epilogue. A warpgroup
 // whose 64 rows lie wholly past R (in K1, the second one at a batch of 64
-// rows or fewer) multiplies nothing: it frees each stage as soon as it has landed.
+// rows or fewer) multiplies nothing: it frees each stage as soon as it has
+// landed.
 //
-// Epilogue: a warpgroup's 64 x 256 accumulators leave in eight chunks of 32
-// columns, each written to one of its two epilogue buffers and sent by one
-// TMA store, which clips at the R and N edges. The stores drain while the
-// next tile multiplies: a tile's 128 KB of f32 is about 5 us of an SM's
-// share of device memory, which stores from registers made the consumers
-// wait out. One thread of each warpgroup issues its stores and, before a
-// buffer is written again, waits until the store that last read it is done
-// reading. K1's bias: both consumer warpgroups copy the tile's 256 values
-// into shared memory between two barriers over their 256 threads; the first
-// also ensures that neither still reads the last tile's copy.
-template <bool K1>
+// TMA-store epilogue: a warpgroup's 64 x 256 accumulators leave in eight
+// chunks of 32 columns, each written to one of its two epilogue buffers and
+// sent by one TMA store, which clips at the R and N edges. The stores drain
+// while the next tile multiplies: a tile's 128 KB of f32 is about 5 us of an
+// SM's share of device memory, which stores from registers made the
+// consumers wait out. One thread of each warpgroup issues its stores and,
+// before a buffer is written again, waits until the store that last read it
+// is done reading. K1's bias: both consumer warpgroups copy the tile's 256
+// values into shared memory between two barriers over their 256 threads;
+// the first also ensures that neither still reads the last tile's copy.
+template <bool A_KMAJOR, typename Epi>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 gemm_bf16_bmn_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b,
-                     const __grid_constant__ CUtensorMap map_c, const float* __restrict__ bias,
-                     int R, int N, int L) {
+                     const __grid_constant__ typename Epi::Params p, int R, int N, int L) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* epi = smem + MN_RING_BYTES;
-  float* bias_s = reinterpret_cast<float*>(epi + 4 * MN_EPI_BYTES);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(epi + 4 * MN_EPI_BYTES + (K1 ? K1_BIAS_BYTES : 0));
-  uint64_t* empty = full + MN_STAGES;
+  constexpr int STAGES = Epi::STAGES;
+  unsigned char* epi = smem + STAGES * MN_STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + Epi::SMEM);
+  uint64_t* empty = full + STAGES;
 
   const int row_tiles = (R + MN_BM - 1) / MN_BM;
   const int tiles = row_tiles * ((N + MN_BN - 1) / MN_BN);
@@ -433,10 +465,11 @@ gemm_bf16_bmn_kernel(const __grid_constant__ CUtensorMap map_a,
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < MN_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // one arrival from each consumer warp
     }
+    if constexpr (!Epi::TMA_STORE) Epi::init(epi);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -449,11 +482,11 @@ gemm_bf16_bmn_kernel(const __grid_constant__ CUtensorMap map_a,
         const int r0 = (t % row_tiles) * MN_BM;
         const int n0 = (t / row_tiles) * MN_BN;
         for (int i = 0; i < k_blocks; ++i, ++it) {
-          const int s = it % MN_STAGES;
-          mbar_wait(&empty[s], ((it / MN_STAGES) & 1) ^ 1);  // round 0 passes at once
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // round 0 passes at once
           unsigned char* st = smem + s * MN_STAGE_BYTES;
           mbar_expect_tx(&full[s], MN_STAGE_BYTES);  // full boxes, even out of bounds
-          if constexpr (K1) {
+          if constexpr (A_KMAJOR) {
             tma_load_2d(st, &map_a, &full[s], i * BK, r0);
           } else {
 #pragma unroll
@@ -472,83 +505,93 @@ gemm_bf16_bmn_kernel(const __grid_constant__ CUtensorMap map_a,
     const int lane = threadIdx.x % 32;
     const int warp = (threadIdx.x % 128) / 32;
     const bool issuer = threadIdx.x % 128 == 0;
-    unsigned char* bufs = epi + (wg - 1) * 2 * MN_EPI_BYTES;
     uint32_t it = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int r0 = (t % row_tiles) * MN_BM;
       const int n0 = (t / row_tiles) * MN_BN;
-      const bool active = !K1 || r0 + (wg - 1) * 64 < R;
+      const int wg_row0 = r0 + (wg - 1) * 64;
+      const bool active = wg_row0 < R;
       if (active) {
 #pragma unroll
         for (int j = 0; j < MN_BN / 2; ++j) d[j] = 0.f;
         for (int i = 0; i < k_blocks; ++i, ++it) {
-          const int s = it % MN_STAGES;
-          mbar_wait(&full[s], (it / MN_STAGES) & 1);
+          const int s = it % STAGES;
+          mbar_wait(&full[s], (it / STAGES) & 1);
           const unsigned char* st = smem + s * MN_STAGE_BYTES;
           // This warpgroup's 64 rows of C: K-major, rows (wg - 1) * 64 of
           // A's box; MN-major, the columns of one box of A.
-          const uint64_t da = K1 ? sw128_desc(st + (wg - 1) * 64 * TILE_BYTES_PER_ROW)
-                                 : sw128_mn_desc(st + (wg - 1) * MN_BOX_BYTES, MN_BOX_BYTES);
+          const uint64_t da = A_KMAJOR
+                                  ? sw128_desc(st + (wg - 1) * 64 * TILE_BYTES_PER_ROW)
+                                  : sw128_mn_desc(st + (wg - 1) * MN_BOX_BYTES, MN_BOX_BYTES);
           const uint64_t db = sw128_mn_desc(st + MN_A_BYTES, MN_BOX_BYTES);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_m64n256k16<K1 ? 0 : 1>(d, da + kk * (K1 ? KMAJOR_K16_STEP : MN_K16_STEP),
-                                         db + kk * MN_K16_STEP);
+            wgmma_m64n256k16<A_KMAJOR ? 0 : 1>(
+                d, da + kk * (A_KMAJOR ? KMAJOR_K16_STEP : MN_K16_STEP), db + kk * MN_K16_STEP);
           wgmma_commit();
           wgmma_wait<1>();  // the group of stage it-1 is done: free that stage
-          if (i > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % MN_STAGES]);
+          if (i > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
         }
         wgmma_wait<0>();
-        if (lane == 0) mbar_arrive(&empty[(it - 1) % MN_STAGES]);
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
       } else {
         for (int i = 0; i < k_blocks; ++i, ++it) {
-          mbar_wait(&full[it % MN_STAGES], (it / MN_STAGES) & 1);
-          if (lane == 0) mbar_arrive(&empty[it % MN_STAGES]);
+          mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+          if (lane == 0) mbar_arrive(&empty[it % STAGES]);
         }
       }
-      if constexpr (K1) {
+      [[maybe_unused]] float* bias_s = reinterpret_cast<float*>(epi + 4 * MN_EPI_BYTES);
+      if constexpr (Epi::BIAS) {
         named_bar_sync(3, 256);
         const int c = threadIdx.x - 128;
-        bias_s[c] = n0 + c < N ? bias[n0 + c] : 0.f;
+        bias_s[c] = n0 + c < N ? p.bias[n0 + c] : 0.f;
         named_bar_sync(3, 256);
       }
       if (!active) continue;
 
       // Accumulator layout as in the TN kernel: register 4j + 2h + c of
       // thread t holds row 16*(t/32) + (t%32)/4 + 8h, column 8j + 2*(t%4) + c.
-      // In a buffer, row r's 16-byte chunk x sits at chunk x ^ (r % 8).
+      if constexpr (!Epi::TMA_STORE) {
+        Epi::epilogue(d, p, epi, wg_row0, n0, R, N);
+      } else {
+        // In a buffer, row r's 16-byte chunk x sits at chunk x ^ (r % 8).
+        unsigned char* bufs = epi + (wg - 1) * 2 * MN_EPI_BYTES;
 #pragma unroll
-      for (int q = 0; q < MN_BN / MN_EPI_COLS; ++q) {
-        unsigned char* buf = bufs + (q & 1) * MN_EPI_BYTES;
-        if (issuer) bulk_wait_read<1>();  // the store of chunk q - 2 has read buf
-        named_bar_sync(wg, 128);
+        for (int q = 0; q < MN_BN / MN_EPI_COLS; ++q) {
+          unsigned char* buf = bufs + (q & 1) * MN_EPI_BYTES;
+          if (issuer) bulk_wait_read<1>();  // the store of chunk q - 2 has read buf
+          named_bar_sync(wg, 128);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = warp * 16 + lane / 4 + 8 * h;
+          for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + lane / 4 + 8 * h;
 #pragma unroll
-          for (int jj = 0; jj < MN_EPI_COLS / 8; ++jj) {
-            const int j = q * (MN_EPI_COLS / 8) + jj;
-            const int chunk = (2 * jj + (lane % 4) / 2) ^ (r % 8);
-            float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
-            if constexpr (K1) {
-              const int col = 8 * j + 2 * (lane % 4);
-              v0 = fminf(fmaxf(v0 + bias_s[col], 0.f), 1.f);
-              v1 = fminf(fmaxf(v1 + bias_s[col + 1], 0.f), 1.f);
+            for (int jj = 0; jj < MN_EPI_COLS / 8; ++jj) {
+              const int j = q * (MN_EPI_COLS / 8) + jj;
+              const int chunk = (2 * jj + (lane % 4) / 2) ^ (r % 8);
+              float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+              if constexpr (Epi::BIAS) {
+                const int col = 8 * j + 2 * (lane % 4);
+                v0 = fminf(fmaxf(v0 + bias_s[col], 0.f), 1.f);
+                v1 = fminf(fmaxf(v1 + bias_s[col + 1], 0.f), 1.f);
+              }
+              *reinterpret_cast<float2*>(buf + r * 128 + chunk * 16 + (lane % 2) * 8) =
+                  make_float2(v0, v1);
             }
-            *reinterpret_cast<float2*>(buf + r * 128 + chunk * 16 + (lane % 2) * 8) =
-                make_float2(v0, v1);
           }
-        }
-        fence_proxy_async();
-        named_bar_sync(wg, 128);
-        if (issuer) {
-          tma_store_2d(&map_c, buf, n0 + q * MN_EPI_COLS, r0 + (wg - 1) * 64);
-          bulk_commit();
+          fence_proxy_async();
+          named_bar_sync(wg, 128);
+          if (issuer) {
+            tma_store_2d(&p.map_c, buf, n0 + q * MN_EPI_COLS, wg_row0);
+            bulk_commit();
+          }
         }
       }
     }
-    if (issuer) bulk_wait_all();
+    // Shared memory must outlive the TMA stores that read it: the stores of
+    // a warpgroup are its first thread's (TMA_STORE), or each warp's are
+    // its lane 0's (the AdamW epilogue).
+    if (lane == 0) bulk_wait_all();
   }
 }
 
@@ -606,6 +649,62 @@ inline int encode_f32_store_map(CUtensorMap* map, void* base, int rows, int cols
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box, elem,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A GEMM as built for the card: {registers a thread, static shared memory,
+// dynamic shared memory, threads a block, stages, BM, BN}; returns a CUDA
+// error.
+inline int gemm_attrs(const void* kernel, int smem, int stages, int bm, int bn, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = GEMM_THREADS;
+  out[4] = stages;
+  out[5] = bm;
+  out[6] = bn;
+  return 0;
+}
+
+template <bool A_KMAJOR, typename Epi>
+int bmn_attrs(int* out) {
+  return gemm_attrs(reinterpret_cast<const void*>(gemm_bf16_bmn_kernel<A_KMAJOR, Epi>),
+                    bmn_smem<Epi>(), Epi::STAGES, MN_BM, MN_BN, out);
+}
+
+// 0 when a GEMM was built with the registers that setmaxnreg's request
+// needs at launch, else a CUDA error.
+inline int launch_regs_ok(int (*attrs)(int*)) {
+  int a[7];
+  const int rc = attrs(a);
+  if (rc != 0) return rc;
+  return a[0] < LAUNCH_REGS ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+// gemm_bf16_bmn_kernel<A_KMAJOR, Epi> over C [R, N] and the contraction L,
+// on a persistent grid of at most one block an SM. A build whose register
+// count would not cover setmaxnreg's request returns
+// cudaErrorInvalidConfiguration before launching.
+template <bool A_KMAJOR, typename Epi>
+int launch_bmn(const CUtensorMap& map_a, const CUtensorMap& map_b, const typename Epi::Params& p,
+               int R, int N, int L, cudaStream_t stream) {
+  static const int regs_rc = launch_regs_ok(bmn_attrs<A_KMAJOR, Epi>);
+  if (regs_rc != 0) return regs_rc;
+  constexpr int smem = bmn_smem<Epi>();
+  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_bmn_kernel<A_KMAJOR, Epi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((R + MN_BM - 1) / MN_BM) * ((N + MN_BN - 1) / MN_BN);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gemm_bf16_bmn_kernel<A_KMAJOR, Epi><<<grid, GEMM_THREADS, smem, stream>>>(map_a, map_b, p, R, N, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sm90

@@ -31,7 +31,10 @@ to plain ops, the CUDA kernels mask the ragged edge.
 W's bf16 shadow (``bf16_shadow``): K1 and K2 read W as bf16 rows padded to
 a multiple of 8, the operand pass's output. The pass runs again only when W
 has changed since the last call (its autograd version counter moved, or it
-is another tensor): once a training step, once in all for render and serve.
+is another tensor): once a training step where AdamW updates W, once in all
+for render and serve. K4 (ops/fused_dw_adamw.py), which updates W itself,
+also writes W's new shadow when W has a current one (``_write_shadow``), so
+a training run with K4 builds the shadow once.
 
 Launch counts: K1's on ``fused_output.launches``, K2's and K3's on
 ``fused_output_dx.launches`` and ``fused_output_dw.launches`` (one a call
@@ -208,7 +211,8 @@ def bf16_shadow(w: torch.Tensor) -> torch.Tensor:
     The shadow is keyed on w itself, by identity (never on its address: a
     freed W and the next one may share it), and holds w's autograd version
     counter, which every in-place PyTorch op bumps, views' included; the
-    CUDA kernels that write w in place (fused_dw_adamw) bump it themselves.
+    CUDA kernels that write w in place (fused_dw_adamw) bump it themselves,
+    and write w's new shadow with it when the old one was current.
     It is no attribute of w, so ``torch.save`` never writes it. It is built
     outside inference mode, so a shadow made while rendering may be saved
     for a later training step's backward; an inference tensor has no version
@@ -225,6 +229,26 @@ def bf16_shadow(w: torch.Tensor) -> torch.Tensor:
         _SHADOWS[w] = (version, w16)
     bf16_shadow.builds += 1
     return w16
+
+
+def _write_shadow(w: torch.Tensor, update) -> None:
+    """Run ``update(w16)``, an in-place update of w that bumps w's version
+    and writes the updated w's bf16, ``round_bf16(w)``, into w16: a new
+    [K, padded_width(N)] bf16 buffer when w has a current shadow, and None
+    (no shadow to write) otherwise. Then w16 is w's shadow at its new
+    version. The old shadow is dropped first, so that the allocator can
+    hand its block to w16, but never written: a caller may hold it (a
+    forward saved for a later backward)."""
+    entry = _SHADOWS.get(w)
+    w16 = None
+    if entry is not None and not w.is_inference() and entry[0] == w._version:
+        shape = entry[1].shape
+        del _SHADOWS[w], entry
+        with torch.inference_mode(False):
+            w16 = torch.empty(shape, dtype=torch.bfloat16, device=w.device)
+    update(w16)
+    if w16 is not None:
+        _SHADOWS[w] = (w._version, w16)
 
 
 def round_bf16(src: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -354,15 +378,25 @@ def fused_output_dx(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> torc
     calls."""
     if g.device.type == "cpu":
         return fused_output_dx_reference(g, out, w)
+    return _k2(g, out, w)[0]
+
+
+def _k2(g: torch.Tensor, out: torch.Tensor, w: torch.Tensor) -> tuple:
+    """K2 on CUDA tensors and its masked operand: (dx, gm16), gm16 =
+    round_bf16(g, out) [M, padded_width(N)] bf16; on CPU tensors the plain
+    versions of both."""
+    if g.device.type == "cpu":
+        return fused_output_dx_reference(g, out, w), round_bf16_reference(g, out)
     _require_cuda("fused_output_dx", g)
     if g.dim() != 2 or w.dim() != 2:
         raise ValueError(f"expected g [M,N], out [M,N], w [K,N]; got {g.shape}, {out.shape}, {w.shape}")
     m, n = g.shape
     k = w.shape[0]
     dev = _check("fused_output_dx", {"g": g, "out": out, "w": w}, {"g": (m, n), "out": (m, n), "w": (k, n)})
+    gm16 = round_bf16(g, out)
     if not m:
-        return torch.empty((0, k), dtype=torch.float32, device=dev)
-    return _dx(round_bf16(g, out), bf16_shadow(w))
+        return torch.empty((0, k), dtype=torch.float32, device=dev), gm16
+    return _dx(gm16, bf16_shadow(w)), gm16
 
 
 def _dx(gm16: torch.Tensor, w16: torch.Tensor) -> torch.Tensor:

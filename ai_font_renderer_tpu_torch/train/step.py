@@ -46,7 +46,7 @@ from ..config import ModelConfig, TrainConfig
 from ..device import resolve_device
 from ..models import font_renderer
 from ..ops.fused_dw_adamw import fused_dw_adamw
-from ..ops.fused_output import clamp_mask, fused_output_dx, fused_output_fwd
+from ..ops.fused_output import _k1, _k2, clamp_mask
 
 EPS = 1e-8
 _CHUNK = 1 << 22  # elements per AdamW chunk: 16 MB of f32 temporaries
@@ -248,31 +248,37 @@ def _frontend(rest: dict, codes, mcfg, generator, remat: str = "none") -> torch.
 
 def _projection(flat, params, targets, mcfg):
     """The written-out projection + clamp + MSE. Returns (loss, out, g, gm,
-    flat_dt, gm_dt): g = dL/dout unmasked, gm = g where 0 < out < 1, and the
-    product operands rounded to bf16 under bf16_matmul. With
-    ``use_pallas_output`` (which implies bf16) the forward product is K1."""
+    flat_dt): g = dL/dout unmasked, gm = g where 0 < out < 1, and flat
+    rounded to bf16 under bf16_matmul. With ``use_pallas_output`` (which
+    implies bf16) the forward product is K1, and flat_dt is K1's own bf16
+    operand (a [B, K] view of its padded x16)."""
     w, b = params["out_w"], params["out_b"]
-    dt = torch.bfloat16 if mcfg.bf16_matmul or mcfg.use_pallas_output else torch.float32
-    flat_dt = flat.to(dt)
     if mcfg.use_pallas_output:
         # w itself (this runs under no_grad): its bf16 shadow is keyed on it.
-        out = fused_output_fwd(flat.contiguous(), w, b.detach())
+        out, x16, _ = _k1(flat.contiguous(), w, b.detach())
+        flat_dt = x16[:, : flat.shape[1]]
     else:
+        dt = torch.bfloat16 if mcfg.bf16_matmul else torch.float32
+        flat_dt = flat.to(dt)
         out = (flat_dt.float() @ w.detach().to(dt).float() + b.detach()).clamp(0.0, 1.0)
     tflat = targets.reshape(targets.shape[0], -1).float()
     d = out - tflat
     loss = (d * d).mean()
     g = (2.0 / d.numel()) * d
     gm = torch.where(clamp_mask(out), g, 0.0)
-    return loss, out, g, gm, flat_dt, gm.to(dt)
+    return loss, out, g, gm, flat_dt
 
 
-def _dflat(out, g, gm_dt, w, mcfg):
-    """dL/dflat = gm_dt @ w^T with w in the product dtype: K2 under
-    ``use_pallas_output`` (which masks g itself), plain f32 sums otherwise."""
+def _dflat(out, g, gm, w, mcfg):
+    """(dL/dflat, gm_dt): gm_dt is gm in the product dtype and dL/dflat =
+    gm_dt @ w^T with w in that dtype. Under ``use_pallas_output`` that is
+    K2, which masks and rounds g itself; gm_dt is then K2's own bf16
+    operand (a [B, N] view of its padded gm16). Plain f32 sums otherwise."""
     if mcfg.use_pallas_output:
-        return fused_output_dx(g, out, w)
-    return gm_dt.float() @ w.to(gm_dt.dtype).float().T
+        dflat, gm16 = _k2(g, out, w)
+        return dflat, gm16[:, : g.shape[1]]
+    gm_dt = gm.to(torch.bfloat16 if mcfg.bf16_matmul else torch.float32)
+    return gm_dt.float() @ w.to(gm_dt.dtype).float().T, gm_dt
 
 
 def _handrolled_step(state: TrainState, codes, targets, lr, generator, mcfg, tcfg):
@@ -292,8 +298,8 @@ def _handrolled_step(state: TrainState, codes, targets, lr, generator, mcfg, tcf
     flat = _frontend(rest, codes, mcfg, generator, tcfg.remat_frontend)
     with torch.no_grad():
         w = params["out_w"]
-        loss, out, g, gm, flat_dt, gm_dt = _projection(flat.detach(), params, targets, mcfg)
-        dflat = _dflat(out, g, gm_dt, w, mcfg)
+        loss, out, g, gm, flat_dt = _projection(flat.detach(), params, targets, mcfg)
+        dflat, gm_dt = _dflat(out, g, gm, w, mcfg)
         grads = {"out_b": gm.sum(0), "out_w": flat_dt.float().T @ gm_dt.float()}
     grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
     keys = list(params)
@@ -309,15 +315,16 @@ def _fused_step(state: FusedTrainState, codes, targets, lr, generator, mcfg, tcf
     """One step with K4 on the output projection: the same forward, MSE and
     AdamW as the standard step, but out_w's gradient never reaches device
     memory. The bf16 input and masked cotangent that K4 reads are the
-    operands of the forward and dX products."""
+    operands of the forward and dX products: under ``use_pallas_output``
+    the very x16 and gm16 that K1 and K2 formed."""
     _check_fused(mcfg)
     params = state.params
     rest = {k: v for k, v in params.items() if k not in ("out_w", "out_b")}
     flat = _frontend(rest, codes, mcfg, generator)
     w = params["out_w"]
     with torch.no_grad():
-        loss, out, g, gm, flat_dt, gm_dt = _projection(flat.detach(), params, targets, mcfg)
-        dflat = _dflat(out, g, gm_dt, w, mcfg)
+        loss, out, g, gm, flat_dt = _projection(flat.detach(), params, targets, mcfg)
+        dflat, gm_dt = _dflat(out, g, gm, w, mcfg)
         grads = {"out_b": gm.sum(0)}
     grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
     keys = [k for k in params if k != "out_w"]

@@ -29,9 +29,12 @@ Phases, each of which raises on failure, each with its seconds:
    the tensor-core forward, K5's without storing the mask), K7's stored
    mask byte for byte against the plain Philox mask, and the backward
    kernels K6 and K8 at batch 1024 in f32 and bf16 (bf16: the tensor-core
-   backward); K9 (K4 on a transposed x) at M = 1024,
-   then the K4/K9 A/B of tools/ab_kernel_micro.py, whose launches are K9's
-   main path.
+   backward); K4 at M = 200 and 1024 with bf16 mu and at 1024 with f32
+   mu, and K9 (K4 on a transposed x) at M = 1024, each on a W with a bf16
+   shadow, which the update must rewrite bit for bit (the TMA + wgmma GEMM
+   of K3 with the AdamW update as its epilogue; times with and without the
+   shadow, against the dW product + torch._fused_adamw_), then the K4/K9
+   A/B of tools/ab_kernel_micro.py, whose launches are K9's main path.
 3. Render: full-width (123M-parameter) weights from a seed, saved and
    loaded through the port's npz format, the 15 test strings rendered to
    BMPs with both kernels on, the sheets checked against the plain path on
@@ -50,7 +53,9 @@ Phases, each of which raises on failure, each with its seconds:
    0.2: three epochs of `attn_v1` (K1, K2, K4 and K5/K6, f32 frontend) and
    three of `attn_v2_fast` (the fast profile: bf16 frontend, bits dropout,
    hand-rolled step with remat "dots", and K7/K8); the train loss must fall
-   and the val loss be finite. Then one step with kernels against the
+   and the val loss be finite, and W's bf16 shadow be built once a run
+   where K4 writes it (`fused`, `attn_v1`), once a step plus one in
+   `output`. Then one step with kernels against the
    plain step on the same weights and batch (dropout off) for each
    configuration, the trained weights through the npz file and rendered
    against the plain path, steps/s of each configuration, and a profile of
@@ -173,6 +178,7 @@ def _attn_peak(dt) -> float:
 
 def phase_build() -> float:
     from ai_font_renderer_tpu_torch.ops import _build, attention_mma_attributes
+    from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import dw_adamw_attributes
     from ai_font_renderer_tpu_torch.ops.fused_output import gemm_attributes
 
     t0 = time.perf_counter()
@@ -187,6 +193,8 @@ def phase_build() -> float:
     # The GEMMs' shared memory is dynamic, which ptxas does not report.
     for kind, name in (("k1", "K1"), ("tn", "K2"), ("mn", "K3")):
         print(f"[build] {name} GEMM as loaded: {json.dumps(gemm_attributes(kind))}", flush=True)
+    print(f"[build] K4 GEMM + AdamW (bf16 mu, W's shadow written) as loaded: "
+          f"{json.dumps(dw_adamw_attributes())}", flush=True)
     print(f"[build] bf16 attention (K5-K8 in bf16, tensor cores) at S=100, E=32, H=4: "
           f"{json.dumps(attention_mma_attributes())}", flush=True)
     print(f"[build] kernels built in {seconds:.2f} s", flush=True)
@@ -527,59 +535,103 @@ def check_backward(round_rows: list, ms_list=(200, 1024), k=6400, n=19200) -> tu
     return dx_rows, dw_rows, gemm_rows, mn_rows
 
 
+def _k4_bounds(m, k, n, mu_bytes) -> dict:
+    """K4's (and K9's) bound without and with W's shadow: x16 and gm16 read
+    once; w and nu read and written in f32, mu in its own type; the shadow
+    written in bf16; 2*M*K*N operations on the bf16 tensor cores."""
+    state = k * n * (8 + 2 * mu_bytes + 8)
+    bound_ms, bound_by = _bound(2 * m * k + 2 * m * n + state, 2 * m * k * n, BF16_TENSOR_FLOPS)
+    shadow_ms, shadow_by = _bound(2 * m * k + 2 * m * n + state + 2 * k * n, 2 * m * k * n, BF16_TENSOR_FLOPS)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bound_shadow_ms": shadow_ms,
+            "bound_shadow_by": shadow_by, "state_bytes": state}
+
+
+def _check_k4_update(name, run, run_ref, w, mu, nu) -> float:
+    """One update of (w, mu, nu) by ``run`` on a W with a current bf16
+    shadow against ``run_ref`` on clones, with K4's tolerances; the shadow
+    the kernel wrote must be W's new shadow (no rebuild) and equal the
+    operand pass on the new W bit for bit. Returns w's max abs error."""
+    from ai_font_renderer_tpu_torch.ops import bf16_shadow, round_bf16, round_bf16_reference
+
+    ref = [t.clone() for t in (w, mu, nu)]
+    bf16_shadow(w)
+    run(w, mu, nu)
+    run_ref(*ref)
+    torch.cuda.synchronize()
+    w_err = float((w - ref[0]).abs().max())
+    mu_err = float(((mu.float() - ref[1].float()).abs() - K4_MU_REL_TOL * ref[1].float().abs()).max())
+    nu_rel = _rel(nu, ref[2])
+    if not (w_err <= K4_W_TOL and mu_err <= 1e-5 * float(ref[1].float().abs().max()) and nu_rel <= GRAD_REL_TOL):
+        raise AssertionError(f"{name}: w err {w_err}, mu excess {mu_err}, nu rel {nu_rel}")
+    builds = bf16_shadow.builds
+    w16 = bf16_shadow(w)
+    if bf16_shadow.builds != builds:
+        raise AssertionError(f"{name}: W's shadow was rebuilt after the update that should write it")
+    if not (torch.equal(w16, round_bf16(w)) and torch.equal(w16, round_bf16_reference(w))):
+        raise AssertionError(f"{name}: the shadow the update wrote differs from round_bf16(w)")
+    return w_err
+
+
+def _time_k4(row, run, run_ref, library, w, mu, nu) -> None:
+    """Times of ``run`` without W's shadow (a clone of W, which has none)
+    and with it (W, whose shadow the checked update wrote), of the plain
+    version and of the library calls, and the state's rate; into ``row``."""
+    lib_w, lib_m, lib_v = w.clone(), mu.float(), nu.clone()
+    w_plain = w.clone()
+    row["ms"] = time_ms(lambda: run(w_plain, mu, nu), 10)
+    row["shadow_ms"] = time_ms(lambda: run(w, mu, nu), 10)
+    del w_plain
+    state = (w.clone(), mu.clone(), nu.clone())
+    row["plain_ms"] = time_ms(lambda: run_ref(*state), 3)
+    del state
+    # The dW product in cuBLAS (bf16 in, f32 out) and torch._fused_adamw_
+    # with f32 moments (decoupled weight decay); then also W's bf16 copy.
+    row["library_ms"] = time_ms(lambda: library(lib_w, lib_m, lib_v), 10)
+    row["library_shadow_ms"] = time_ms(lambda: (library(lib_w, lib_m, lib_v), lib_w.to(torch.bfloat16)), 10)
+    row["state_gb_per_s"] = row["state_bytes"] / (row["ms"] * 1e-3) / 1e9
+
+
 def check_dw_adamw(ms_list=(200, 1024), k=6400, n=19200) -> list[dict]:
     """K4 vs its plain version at step 5, moments seeded non-zero (at t = 1
     Adam's update is lr*sign(dW), which flips on rounding noise); bf16 mu as
-    the trainer keeps it."""
+    the trainer keeps it at each row count, then f32 mu at the largest. W
+    has a bf16 shadow, which the update must rewrite bit for bit."""
     from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import fused_dw_adamw, fused_dw_adamw_reference
 
     g = torch.Generator(device="cuda").manual_seed(4)
     hyper = (1e-3, 5e-4, 0.9, 0.99)
     rows = []
-    for m in ms_list:
+    for m, mu_dtype in [*((m, torch.bfloat16) for m in ms_list), (ms_list[-1], torch.float32)]:
         x16 = torch.relu(torch.randn(m, k, generator=g, device="cuda")).to(torch.bfloat16)
         gm16 = (torch.randn(m, n, generator=g, device="cuda") * (2.0 / (m * n))).to(torch.bfloat16)
         w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) / k**0.5
-        mu = (torch.randn(k, n, generator=g, device="cuda") * 1e-7).to(torch.bfloat16)
+        mu = (torch.randn(k, n, generator=g, device="cuda") * 1e-7).to(mu_dtype)
         nu = torch.rand(k, n, generator=g, device="cuda") * 1e-14 + 1e-16
-        ref = [t.clone() for t in (w, mu, nu)]
-        fused_dw_adamw(x16, gm16, w, mu, nu, *hyper, 5)
-        fused_dw_adamw_reference(x16, gm16, *ref, *hyper, 5)
-        torch.cuda.synchronize()
-        w_err = float((w - ref[0]).abs().max())
-        mu_err = float(((mu.float() - ref[1].float()).abs() - K4_MU_REL_TOL * ref[1].float().abs()).max())
-        nu_rel = _rel(nu, ref[2])
-        if not (w_err <= K4_W_TOL and mu_err <= 1e-5 * float(ref[1].float().abs().max()) and nu_rel <= GRAD_REL_TOL):
-            raise AssertionError(f"K4 M={m}: w err {w_err}, mu excess {mu_err}, nu rel {nu_rel}")
-        del ref
-        lib_w, lib_m, lib_v = w.clone(), mu.float(), nu.clone()
         step_t = torch.tensor(5.0, device="cuda")
+        mu_name = "bf16" if mu_dtype == torch.bfloat16 else "f32"
 
-        def library():
+        def run(w_, mu_, nu_):
+            fused_dw_adamw(x16, gm16, w_, mu_, nu_, *hyper, 5)
+
+        def run_ref(w_, mu_, nu_):
+            fused_dw_adamw_reference(x16, gm16, w_, mu_, nu_, *hyper, 5)
+
+        def library(w_, m_, v_):
             dw = torch.mm(x16.t(), gm16, out_dtype=torch.float32)
-            torch._fused_adamw_([lib_w], [dw], [lib_m], [lib_v], [], [step_t], lr=hyper[0],
-                                beta1=hyper[2], beta2=hyper[3], weight_decay=hyper[1], eps=1e-8,
-                                amsgrad=False, maximize=False)
+            torch._fused_adamw_([w_], [dw], [m_], [v_], [], [step_t], lr=hyper[0], beta1=hyper[2],
+                                beta2=hyper[3], weight_decay=hyper[1], eps=1e-8, amsgrad=False, maximize=False)
 
-        state = (w.clone(), mu.clone(), nu.clone())
-        bound_ms, bound_by = _bound(
-            2 * m * k + 2 * m * n + k * n * (8 + 4 + 8), 2 * m * k * n, BF16_TENSOR_FLOPS
-        )
+        w_err = _check_k4_update(f"K4 M={m} mu={mu_name}", run, run_ref, w, mu, nu)
         row = {
-            "shape": f"M={m},K={k},N={n},mu=bf16",
+            "shape": f"M={m},K={k},N={n},mu={mu_name}",
             "max_abs_err": w_err,
-            "tol": f"w {K4_W_TOL}; mu one bf16 step; nu {GRAD_REL_TOL} of max",
-            "ms": time_ms(lambda: fused_dw_adamw(x16, gm16, w, mu, nu, *hyper, 5), 10),
-            "plain_ms": time_ms(lambda: fused_dw_adamw_reference(x16, gm16, *state, *hyper, 5), 3),
-            # Two calls: the dW product in cuBLAS (bf16 in, f32 out) and
-            # torch._fused_adamw_ with f32 moments (decoupled weight decay).
-            "library_ms": time_ms(library, 10),
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "tol": f"w {K4_W_TOL}; mu one bf16 step; nu {GRAD_REL_TOL} of max; shadow bit for bit",
+            **_k4_bounds(m, k, n, mu.element_size()),
         }
+        _time_k4(row, run, run_ref, library, w, mu, nu)
         print(f"[K4 fused_dw_adamw] {json.dumps(row)}", flush=True)
         rows.append(row)
-        del w, mu, nu, state, lib_w, lib_m, lib_v
+        del w, mu, nu
     return rows
 
 
@@ -823,7 +875,7 @@ def check_attention_backward(bsz=1024, s=100, e=32, heads=4) -> tuple[list[dict]
 def check_dw_adamw_xt(m=1024, k=6400, n=19200) -> list[dict]:
     """K9 (K4 with x transposed to [K, M]; b1 0.9, b2 0.99, wd 5e-4 fixed)
     against its plain version at step 5 with seeded moments and bf16 mu,
-    with K4's tolerances."""
+    with K4's tolerances and K4's shadow check."""
     from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import (
         XT_B1,
         XT_B2,
@@ -838,36 +890,27 @@ def check_dw_adamw_xt(m=1024, k=6400, n=19200) -> list[dict]:
     w = (torch.rand(k, n, generator=g, device="cuda") * 2 - 1) / k**0.5
     mu = (torch.randn(k, n, generator=g, device="cuda") * 1e-7).to(torch.bfloat16)
     nu = torch.rand(k, n, generator=g, device="cuda") * 1e-14 + 1e-16
-    ref = [t.clone() for t in (w, mu, nu)]
-    fused_dw_adamw_xt(xt, gm16, w, mu, nu, 1e-3, 5)
-    fused_dw_adamw_xt_reference(xt, gm16, *ref, 1e-3, 5)
-    torch.cuda.synchronize()
-    w_err = float((w - ref[0]).abs().max())
-    mu_err = float(((mu.float() - ref[1].float()).abs() - K4_MU_REL_TOL * ref[1].float().abs()).max())
-    nu_rel = _rel(nu, ref[2])
-    if not (w_err <= K4_W_TOL and mu_err <= 1e-5 * float(ref[1].float().abs().max()) and nu_rel <= GRAD_REL_TOL):
-        raise AssertionError(f"K9 M={m}: w err {w_err}, mu excess {mu_err}, nu rel {nu_rel}")
-    del ref
-    state = (w.clone(), mu.clone(), nu.clone())
-    lib_w, lib_m, lib_v = w.clone(), mu.float(), nu.clone()
     step_t = torch.tensor(5.0, device="cuda")
 
-    def library():
-        dw = torch.mm(xt, gm16, out_dtype=torch.float32)
-        torch._fused_adamw_([lib_w], [dw], [lib_m], [lib_v], [], [step_t], lr=1e-3, beta1=XT_B1,
-                            beta2=XT_B2, weight_decay=XT_WD, eps=1e-8, amsgrad=False, maximize=False)
+    def run(w_, mu_, nu_):
+        fused_dw_adamw_xt(xt, gm16, w_, mu_, nu_, 1e-3, 5)
 
-    bound_ms, bound_by = _bound(2 * m * k + 2 * m * n + k * n * (8 + 4 + 8), 2 * m * k * n, BF16_TENSOR_FLOPS)
+    def run_ref(w_, mu_, nu_):
+        fused_dw_adamw_xt_reference(xt, gm16, w_, mu_, nu_, 1e-3, 5)
+
+    def library(w_, m_, v_):
+        dw = torch.mm(xt, gm16, out_dtype=torch.float32)
+        torch._fused_adamw_([w_], [dw], [m_], [v_], [], [step_t], lr=1e-3, beta1=XT_B1, beta2=XT_B2,
+                            weight_decay=XT_WD, eps=1e-8, amsgrad=False, maximize=False)
+
+    w_err = _check_k4_update(f"K9 M={m}", run, run_ref, w, mu, nu)
     row = {
         "shape": f"M={m},K={k},N={n},mu=bf16,xt",
         "max_abs_err": w_err,
-        "tol": f"w {K4_W_TOL}; mu one bf16 step; nu {GRAD_REL_TOL} of max",
-        "ms": time_ms(lambda: fused_dw_adamw_xt(xt, gm16, w, mu, nu, 1e-3, 5), 10),
-        "plain_ms": time_ms(lambda: fused_dw_adamw_xt_reference(xt, gm16, *state, 1e-3, 5), 3),
-        "library_ms": time_ms(library, 10),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "tol": f"w {K4_W_TOL}; mu one bf16 step; nu {GRAD_REL_TOL} of max; shadow bit for bit",
+        **_k4_bounds(m, k, n, mu.element_size()),
     }
+    _time_k4(row, run, run_ref, library, w, mu, nu)
     print(f"[K9 fused_dw_adamw_xt] {json.dumps(row)}", flush=True)
     return [row]
 
@@ -1387,9 +1430,12 @@ def phase_train(workdir: str, card: str) -> dict:
               f"times in {steps} steps", flush=True)
         if not (losses[-1] < losses[0] and all(np.isfinite(vals))):
             raise AssertionError(f"train {name}: the train loss did not fall or val is not finite")
-        if builds > steps + 1:
+        # K4 writes W's new shadow with W: one build a run. Otherwise every
+        # step's update of W makes the next K1 build one.
+        most = 1 if tcfg.fused_dw_adamw else steps + 1
+        if builds > most:
             raise AssertionError(f"train {name} built W's shadow {builds} times in {steps} steps, "
-                                 f"want one a step plus one")
+                                 f"want at most {most}")
         for kernel in attention_kernels.get(name, ()):
             if run_counts[kernel] <= 0:
                 raise AssertionError(f"train {name} never launched {kernel}: {run_counts}")
@@ -1449,8 +1495,15 @@ def phase_train(workdir: str, card: str) -> dict:
     return counts
 
 
-def _kernel_entry(name, source, replaces, rows, headline, launches) -> dict:
+def _kernel_entry(name, source, replaces, rows, headline, launches, shadow=False) -> dict:
+    """The kernels line's entry: the row ``headline``'s numbers, or with
+    ``shadow`` those of its variant that writes W's bf16 shadow (the one
+    the training step launches)."""
     head = next(r for r in rows if r["shape"] == headline)
+    if shadow:
+        head = {**head, "ms": head["shadow_ms"], "bound_ms": head["bound_shadow_ms"],
+                "bound_by": head["bound_shadow_by"], "library_ms": head["library_shadow_ms"]}
+        headline += ",shadow"
     return {
         "name": name,
         "route": "cuda",
@@ -1586,7 +1639,7 @@ def main() -> int:
         _kernel_entry(
             "fused_dw_adamw", src + "fused_dw_adamw.cu",
             "ai_font_renderer_tpu/ops/fused_dw_adamw.py:55", k4_rows,
-            "M=1024,K=6400,N=19200,mu=bf16", launches["fused_dw_adamw"],
+            "M=1024,K=6400,N=19200,mu=bf16", launches["fused_dw_adamw"], shadow=True,
         ),
         _kernel_entry(
             "fused_dw_adamw_xt (K9)", src + "fused_dw_adamw.cu",

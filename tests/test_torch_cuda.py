@@ -464,8 +464,9 @@ def test_k1_launch_counts_and_shadow_builds(cuda):
 @pytest.mark.parametrize("xt", [False, True], ids=["K4", "K9"])
 def test_k4_update_then_k1_reads_the_new_weights(cuda, xt):
     """K4 (or K9) writes W in place from CUDA and bumps the version counters
-    of W and its moments; the next K1 rebuilds W's shadow exactly once and
-    gives the updated weights' plain result."""
+    of W and its moments; since W had a current shadow, it also writes W's
+    new shadow, so the next K1 rebuilds nothing and gives the updated
+    weights' plain result."""
     m, k, n = 64, 640, 384
     x, _, b = _output_inputs(m, k, n, cuda)
     gen = torch.Generator(device=cuda).manual_seed(9)
@@ -481,11 +482,80 @@ def test_k4_update_then_k1_reads_the_new_weights(cuda, xt):
         fused_dw_adamw(x16, gm, w, mu, nu, 1e-2, 5e-4, 0.9, 0.99, 5)
     assert all(t._version > v for t, v in zip((w, mu, nu), versions))
     got = fused_output(x, w, b)
-    assert bf16_shadow.builds == builds + 1
+    assert bf16_shadow.builds == builds
     assert not torch.equal(got, first)
     torch.testing.assert_close(got, fused_output_reference(x, w, b), atol=1e-4, rtol=0)
     fused_output(x, w, b)
+    assert bf16_shadow.builds == builds
+
+
+@pytest.mark.parametrize("xt,mu_dtype", [(False, torch.bfloat16), (False, torch.float32), (True, torch.bfloat16)],
+                         ids=["K4-mu_bf16", "K4-mu_f32", "K9-mu_bf16"])
+def test_k4_writes_ws_shadow_bit_for_bit_at_full_width(cuda, xt, mu_dtype):
+    """At the model's width (M = 1024, K = 6400, N = 19200) the shadow that
+    K4 (or K9) writes with W equals the operand pass on the updated W, and
+    its plain version, bit for bit; bf16_shadow then returns it without a
+    rebuild, and a shadow held from before the update is unchanged."""
+    m, k, n = 1024, 6400, 19200
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    x16 = torch.relu(torch.randn(m, k, generator=gen, device=cuda)).to(torch.bfloat16)
+    gm = (torch.randn(m, n, generator=gen, device=cuda) * 1e-6).to(torch.bfloat16)
+    w, mu, nu = _adam_state(k, n, mu_dtype, cuda)
+    held = bf16_shadow(w)
+    before = held.clone()
+    if xt:
+        fused_dw_adamw_xt(x16.T.contiguous(), gm, w, mu, nu, 1e-3, 5)
+    else:
+        fused_dw_adamw(x16, gm, w, mu, nu, 1e-3, 5e-4, 0.9, 0.99, 5)
+    builds = bf16_shadow.builds
+    w16 = bf16_shadow(w)
+    assert bf16_shadow.builds == builds and w16 is not held
+    assert torch.equal(w16, round_bf16(w)) and torch.equal(w16, round_bf16_reference(w))
+    assert torch.equal(held, before)
+
+
+@pytest.mark.parametrize("xt", [False, True], ids=["K4", "K9"])
+def test_k4_on_a_w_without_a_shadow_writes_none(cuda, xt):
+    """A W whose shadow is stale (or that has none) gets none from K4: the
+    next K1 builds it, from the updated W. N = 301 leaves pad columns."""
+    m, k, n = 37, 200, 301
+    x, _, b = _output_inputs(m, k, n, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x16 = torch.relu(torch.randn(m, k, generator=gen, device=cuda)).to(torch.bfloat16)
+    gm = (torch.randn(m, n, generator=gen, device=cuda) * 1e-3).to(torch.bfloat16)
+    w, mu, nu = _adam_state(k, n, torch.float32, cuda)
+    fused_output(x, w, b)
+    w.mul_(1.5)  # the shadow is stale now
+    if xt:
+        fused_dw_adamw_xt(x16.T.contiguous(), gm, w, mu, nu, 1e-3, 5)
+    else:
+        fused_dw_adamw(x16, gm, w, mu, nu, 1e-3, 5e-4, 0.9, 0.99, 5)
+    builds = bf16_shadow.builds
+    got = fused_output(x, w, b)
     assert bf16_shadow.builds == builds + 1
+    assert torch.equal(bf16_shadow(w), round_bf16_reference(w))
+    torch.testing.assert_close(got, fused_output_reference(x, w, b), atol=1e-4, rtol=0)
+
+
+def test_k4_takes_column_slices_of_padded_operands(cuda):
+    """K4 reads x16 and gm16 as the trainer hands them over, [M, K] and
+    [M, N] views of K1's and K2's padded operands (K = 200 + 4, N = 301),
+    without a copy, and updates as from contiguous ones; the shadow's pad
+    columns are zero."""
+    m, k, n = 40, 204, 301
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.relu(torch.randn(m, k, generator=gen, device=cuda))
+    g = torch.randn(m, n, generator=gen, device=cuda) * 1e-3
+    x16, gm16 = round_bf16(x), round_bf16(g)
+    w, mu, nu = _adam_state(k, n, torch.bfloat16, cuda)
+    ref = [t.clone() for t in (w, mu, nu)]
+    bf16_shadow(w)
+    fused_dw_adamw(x16[:, :k], gm16[:, :n], w, mu, nu, 1e-3, 5e-4, 0.9, 0.99, 5)
+    fused_dw_adamw(x16[:, :k].contiguous(), gm16[:, :n].contiguous(), *ref, 1e-3, 5e-4, 0.9, 0.99, 5)
+    torch.testing.assert_close(w, ref[0], atol=1e-6, rtol=0)
+    assert torch.equal(nu, ref[2]) and torch.equal(mu, ref[1])
+    w16 = bf16_shadow(w)
+    assert w16.shape == (k, 304) and not w16[:, n:].any()
 
 
 def test_k2_reads_the_shadow_k1_built(cuda):
