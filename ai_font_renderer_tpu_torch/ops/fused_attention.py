@@ -7,8 +7,9 @@ fused_attention.py). Both are ``torch.autograd.Function``s, giving
 gradients to x and to all eight weights, over two CUDA sources chosen by
 x's dtype alone: bf16 takes the tensor-core kernels of
 csrc/attention_mma.cu (``attention_mma_fwd``, ``attention_mma_bwd``), f32
-the CUDA-core kernels of csrc/fused_attention.cu (f32 products on tensor
-cores would be TF32). Either way:
+the CUDA-core kernels of csrc/fused_attention.cu (one cluster of H blocks
+a sample, a block a head; f32 products on tensor cores would be TF32).
+Either way:
 
 * v1 (``fused_attention``): forward K5 (``_fwd_kernel``), backward K6
   (``_bwd_kernel``), which regenerates the dropout mask from the seed;
@@ -64,8 +65,10 @@ _SIGNATURES = {
     "afr_fused_attention_bwd": (
         [_P] * 14 + [_I] * 5 + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, _P], _I,
     ),
+    "afr_fused_attention_shape_ok": ([_I, _I, _I], _I),
     "afr_fused_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "afr_fused_attention_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "afr_fused_attention_attributes": ([_I] * 4 + [ctypes.POINTER(ctypes.c_int)], _I),
 }
 
 
@@ -196,6 +199,29 @@ def _check_cuda(x: torch.Tensor, weights, heads: int) -> None:
             raise ValueError(f"{k} must be a contiguous float32 {shape} tensor on {x.device}")
 
 
+def _check_f32(x, heads, backward: bool):
+    """What the f32 CUDA-core kernels take beyond ``_check_cuda``; raise on
+    anything else. Returns the library."""
+    _, S, E = x.shape
+    lib = _build.load("fused_attention", _SIGNATURES)
+    if not lib.afr_fused_attention_shape_ok(S, E, heads):
+        raise ValueError(
+            f"the f32 attention kernels take a head width E/H of 8, 16 or 32, E <= 32 and "
+            f"S <= 128, not S={S}, E={E}, H={heads}")
+    smem = lib.afr_fused_attention_bwd_smem_bytes if backward else lib.afr_fused_attention_smem_bytes
+    need = smem(S, E, heads)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"S={S}, E={E}, H={heads} needs {need} bytes of shared memory a block, "
+                         f"more than the {_SMEM_LIMIT} one block has")
+    return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes: the
+    kernels move rows in 16-byte pieces."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _mode(rate: float, stored: bool) -> int:
     """Where the keep mask comes from: 0 rate 0, 1 drawn from the seed, 2
     stored (the forward stores it, the backward reads it)."""
@@ -213,9 +239,8 @@ def _launch_fwd(x, weights, heads, rate, seed, store_mask, entry):
         return out, mask
     B, S, E = x.shape
     mode = _mode(rate, store_mask)
-    lib = _build.load("fused_attention", _SIGNATURES)
-    if lib.afr_fused_attention_smem_bytes(S, E, mode) > _SMEM_LIMIT:
-        raise ValueError(f"S={S}, E={E} needs more shared memory than one block has")
+    lib = _check_f32(x, heads, backward=False)
+    x = _aligned(x)
     out = torch.empty_like(x)
     mask = torch.empty(B, heads, S, S, dtype=torch.uint8, device=x.device) if mode == 2 else None
     if B == 0:
@@ -269,9 +294,9 @@ def _launch_bwd(x, g, weights, heads, rate, seed, mask, entry):
         return dx, grads
     B, S, E = x.shape
     g = _check_backward(x, g, heads, mask)
-    lib = _build.load("fused_attention", _SIGNATURES)
-    if lib.afr_fused_attention_bwd_smem_bytes(S, E, heads) > _SMEM_LIMIT:
-        raise ValueError(f"S={S}, E={E}, H={heads} needs more shared memory than one block has")
+    lib = _check_f32(x, heads, backward=True)
+    x, g = _aligned(x), _aligned(g)
+    mask = _aligned(mask) if mask is not None else None
     dx = torch.empty_like(x)
     partials = torch.empty(B, 4 * E * E + 4 * E, dtype=torch.float32, device=x.device)
     if B == 0:
@@ -385,6 +410,26 @@ def attention_mma_attributes(S: int = 100, E: int = 32, heads: int = 4) -> dict:
         for which, (name, smem) in enumerate((("fwd", lib.afr_attention_mma_fwd_smem_bytes),
                                                ("bwd", lib.afr_attention_mma_bwd_smem_bytes)))
     }
+
+
+def fused_attention_attributes(S: int = 100, E: int = 32, heads: int = 4) -> dict:
+    """The f32 CUDA-core kernels as the card holds them at this shape, for
+    each source of the mask (``none``: rate 0, ``regen``: v1, ``stored``:
+    v2), forward and backward: block size, dynamic shared memory,
+    registers and local (spill) bytes a thread, cluster size, blocks per SM
+    and clusters the card runs at once."""
+    lib = _build.load("fused_attention", _SIGNATURES)
+    keys = ("threads", "smem_bytes", "registers", "local_bytes", "cluster", "blocks_per_sm",
+            "active_clusters")
+    out = {}
+    for which in range(6):
+        vals = (ctypes.c_int * len(keys))()
+        rc = lib.afr_fused_attention_attributes(which, S, E, heads, vals)
+        if rc != 0:
+            raise RuntimeError(f"f32 attention kernel attributes: CUDA error {rc}")
+        name = f"{('fwd', 'bwd')[which // 3]}_{('none', 'regen', 'stored')[which % 3]}"
+        out[name] = dict(zip(keys, vals))
+    return out
 
 
 def _keep_mask(x, heads, rate, seed):

@@ -10,9 +10,12 @@ Phases, each of which raises on failure, each with its seconds:
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
    the port from csrc/ (one nvcc per source, all at once), with the build
    time, ptxas's registers and shared memory for each kernel, the K2
-   and K3 GEMMs' launch shapes and dynamic shared memory, and the bf16
+   and K3 GEMMs' launch shapes and dynamic shared memory, the bf16
    attention kernels' (csrc/attention_mma.cu) block size, dynamic shared
-   memory and blocks per SM.
+   memory and blocks per SM, and the f32 attention kernels'
+   (csrc/fused_attention.cu: a cluster of H blocks a sample) registers,
+   spills, shared memory, cluster size, blocks per SM and clusters in
+   flight, for each source of the dropout mask.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it: max abs error against the stated tolerance,
    and times from CUDA events for the kernel, the plain version, one
@@ -177,7 +180,7 @@ def _attn_peak(dt) -> float:
 
 
 def phase_build() -> float:
-    from ai_font_renderer_tpu_torch.ops import _build, attention_mma_attributes
+    from ai_font_renderer_tpu_torch.ops import _build, attention_mma_attributes, fused_attention_attributes
     from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import dw_adamw_attributes
     from ai_font_renderer_tpu_torch.ops.fused_output import gemm_attributes
 
@@ -197,6 +200,8 @@ def phase_build() -> float:
           f"{json.dumps(dw_adamw_attributes())}", flush=True)
     print(f"[build] bf16 attention (K5-K8 in bf16, tensor cores) at S=100, E=32, H=4: "
           f"{json.dumps(attention_mma_attributes())}", flush=True)
+    print(f"[build] f32 attention (K5-K8 in f32, CUDA cores, a cluster of H blocks a sample) at "
+          f"S=100, E=32, H=4: {json.dumps(fused_attention_attributes())}", flush=True)
     print(f"[build] kernels built in {seconds:.2f} s", flush=True)
     return seconds
 
@@ -1575,27 +1580,32 @@ def main() -> int:
             "M=1024,K=6400,N=19200", launches["gemm_bf16_bias_clamp"],
         ),
         _kernel_entry(
-            "fused_attention_fwd (v1 entry point, K5)", src + "fused_attention.cu",
+            "attention_f32_fwd (v1 entry point in f32, K5; a cluster of H blocks a sample)",
+            src + "fused_attention.cu",
             "ai_font_renderer_tpu/ops/fused_attention.py:65",
+            # The f32 rows: K5's, then K7's f32 build (the same kernel).
             [r for r in attn_rows if r["shape"].endswith("float32")]
-            + [r for n, r in drop_rows if n.startswith("K5")],
+            + [r for n, r in drop_rows if "float32" in r["shape"]],
             f"B=1024,S=100,E=32,H=4,float32,dropout={DROPOUT}", launches["fused_attention"],
         ),
         _kernel_entry(
             "fused_attention2_fwd (v2 entry point, K7)", src + "attention_mma.cu",
             "ai_font_renderer_tpu/ops/fused_attention.py:374",
             [r for r in attn_rows if r["shape"].endswith("bfloat16")]
-            + [r for n, r in drop_rows if n.startswith("K7")],
+            + [r for n, r in drop_rows if n.startswith("K7") and "bfloat16" in r["shape"]],
             f"B=1024,S=100,E=32,H=4,bfloat16,dropout={DROPOUT}", launches["fused_attention2"],
         ),
         _kernel_entry(
-            "fused_attention_bwd (v1, mask regenerated, K6)", src + "fused_attention.cu",
-            "ai_font_renderer_tpu/ops/fused_attention.py:122", k6_rows,
+            "attention_f32_bwd (v1 in f32, mask regenerated, K6; a cluster of H blocks a sample)",
+            src + "fused_attention.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:122",
+            [r for r in k6_rows + k8_rows if "float32" in r["shape"]],
             f"B=1024,S=100,E=32,H=4,float32,dropout={DROPOUT}", launches["fused_attention_backward"],
         ),
         _kernel_entry(
             "fused_attention2_bwd (v2, mask read, K8)", src + "attention_mma.cu",
-            "ai_font_renderer_tpu/ops/fused_attention.py:427", k8_rows,
+            "ai_font_renderer_tpu/ops/fused_attention.py:427",
+            [r for r in k8_rows if "bfloat16" in r["shape"]],
             f"B=1024,S=100,E=32,H=4,bfloat16,dropout={DROPOUT}", launches["fused_attention2_backward"],
         ),
         _kernel_entry(

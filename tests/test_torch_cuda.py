@@ -724,15 +724,80 @@ def test_tensor_core_attention_through_autograd(cuda, stored):
     assert x.grad.dtype == torch.bfloat16 and all(v.grad is not None for v in w.values())
 
 
+def _f32_counts():
+    return (fused_attention.launches, fused_attention2.launches, fused_attention_backward.launches,
+            fused_attention2_backward.launches)
+
+
 def test_f32_attention_still_takes_the_cuda_core_kernels(cuda):
-    """An f32 call launches the f32 kernels and not the tensor-core ones."""
+    """An f32 call of each of the four entry points launches the f32
+    kernels (the cluster kernels of csrc/fused_attention.cu) and not the
+    tensor-core ones, directly and through autograd."""
     x, w = _attn_inputs(2, 100, 32, cuda, torch.float32)
     g = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
-    before = (*_mma_counts(), fused_attention2.launches, fused_attention2_backward.launches)
+    before = (*_mma_counts(), *_f32_counts())
     out, mask = fused_attention2(x, w, 4, 0.2, _seed(cuda), return_mask=True)
     fused_attention2_backward(x, g, w, 4, 0.2, mask)
-    assert (*_mma_counts(), fused_attention2.launches, fused_attention2_backward.launches) == (
-        before[0], before[1], before[2] + 1, before[3] + 1)
+    fused_attention(x, w, 4, 0.2, _seed(cuda))
+    fused_attention_backward(x, g, w, 4, 0.2, _seed(cuda))
+    assert (*_mma_counts(), *_f32_counts()) == (
+        before[0], before[1], before[2] + 1, before[3] + 1, before[4] + 1, before[5] + 1)
+    xg = x.clone().requires_grad_()
+    fused_attention(xg, w, 4, 0.2, _seed(cuda)).sum().backward()
+    assert (*_mma_counts(), *_f32_counts()) == (
+        before[0], before[1], before[2] + 2, before[3] + 1, before[4] + 2, before[5] + 1)
+
+
+# The f32 kernels' layout at its edges: a cluster of H blocks a sample
+# (H = 1, 2, 4; head widths 8, 16 and 32), a lane per 4 keys (S % 4 != 0
+# draws each element's Philox word alone; S = 128, the most), the batches of
+# render, serve and a single sample, and the backward's largest shared
+# memory (S = 128, d = 32).
+F32_EDGE_SHAPES = [(1, 100, 32, 4), (15, 100, 32, 4), (64, 100, 32, 4), (5, 7, 16, 2),
+                   (3, 37, 32, 4), (2, 40, 32, 1), (2, 100, 32, 2), (4, 128, 32, 4), (2, 128, 32, 1)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("bsz,s,e,heads", F32_EDGE_SHAPES)
+def test_f32_attention_kernels_at_the_layouts_edges(cuda, rate, bsz, s, e, heads):
+    """K5/K7 and K6/K8 in f32 against the plain versions fed the plain
+    mask (1e-4 forward, BWD_TOL backward); K7's mask equals the plain mask
+    byte for byte; v1 and v2, K6 and K8, and a second run give the same
+    bits."""
+    x, w = _attn_inputs(bsz, s, e, cuda, torch.float32, seed=bsz + s)
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    seed = _seed(cuda)
+    want_mask = dropout_keep(seed, (bsz, heads, s, s), rate).to(torch.uint8) if rate else None
+    out1 = fused_attention(x, w, heads, rate, seed)
+    out2, mask = fused_attention2(x, w, heads, rate, seed, return_mask=True)
+    again = fused_attention(x, w, heads, rate, seed)
+    assert torch.equal(out1, out2) and torch.equal(out1, again)
+    if rate:
+        assert torch.equal(mask, want_mask)
+    want = fused_attention_reference(x, w, heads, mask=want_mask, rate=rate)
+    torch.testing.assert_close(out1, want, atol=1e-4, rtol=0)
+    k6 = fused_attention_backward(x, g, w, heads, rate, seed)
+    k8 = fused_attention2_backward(x, g, w, heads, rate, want_mask)
+    k6_again = fused_attention_backward(x, g, w, heads, rate, seed)
+    _assert_grads_close(k6, fused_attention_backward_reference(x, g, w, heads, rate, want_mask),
+                        BWD_TOL[torch.float32])
+    for other in (k8, k6_again):
+        assert torch.equal(k6[0], other[0]) and all(torch.equal(k6[1][k], other[1][k]) for k in KEYS)
+
+
+def test_f32_attention_refuses_what_it_cannot_take(cuda):
+    """The f32 kernels' limits, each named by the error: a lane per 4 keys
+    (S <= 128), a lane per output column (E <= 32), head widths 8, 16 and
+    32."""
+    x, w = _attn_inputs(1, 129, 32, cuda, torch.float32)
+    with pytest.raises(ValueError, match="S <= 128"):
+        fused_attention(x, w, 4)
+    x, w = _attn_inputs(1, 8, 64, cuda, torch.float32)
+    with pytest.raises(ValueError, match="E <= 32"):
+        fused_attention2(x, w, 4)
+    x, w = _attn_inputs(1, 8, 32, cuda, torch.float32)
+    with pytest.raises(ValueError, match="head width"):
+        fused_attention(x, w, 8)  # d = 4
 
 
 def test_tensor_core_attention_refuses_what_it_cannot_take(cuda):
