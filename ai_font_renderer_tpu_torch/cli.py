@@ -1,12 +1,23 @@
-"""Command line of the port: train, render and serve.
+"""Command line of the port: train, render, serve, export the dataset and
+evaluate weights.
 
   * ``--train``      train a new model, save ``font_renderer.npz`` in the
                      working directory, render the test strings to BMPs
                      under ``train_output_<timestamp>/`` (``--output``);
+                     ``--font`` picks the corpus' font, monospace
+                     (FiraCode) or proportional (Montserrat);
   * no arguments     load saved weights if present, else train and save;
                      then render the test strings;
-  * ``render``       render given strings (or the test strings) to BMPs;
+  * ``render``       render given strings (or the test strings) to BMPs,
+                     from ``.npz`` or ``.pth`` weights; ``--truth`` draws
+                     the shaped ground truth (GSUB + GPOS, ``--hinted``
+                     grid-fitted) with no model;
   * ``serve``        run the batched render server;
+  * ``fontgen``      write the dataset in the reference's file format:
+                     ``data.txt``, ``1.bmp``..``N.bmp`` and
+                     ``dataset_metadata.txt``;
+  * ``eval``         val-split MSE/PSNR and the test strings' MSE of
+                     saved weights, as one JSON line;
   * unknown option   usage plus ``Available options: --train``, exit 1.
 
 Everything runs on the card unless ``--device cpu`` is given. ``--kernels``
@@ -24,7 +35,7 @@ import datetime
 import os
 import sys
 
-from .config import SheetSpec, replace
+from .config import FIRACODE_PATH, SheetSpec, replace
 
 # Curated eval strings: repeated wide/narrow chars, multi-space runs, the
 # exact-length boundary, the alphabet both ways, all spaces.
@@ -46,7 +57,19 @@ TEST_STRINGS = [
     "                    ",
 ]
 
-_LATER = "{flag} is not ported to the PyTorch/CUDA package yet; it comes with a later slice."
+_LATER = (
+    "{flag} is not ported to the PyTorch/CUDA package yet; it comes with a later slice "
+    "(ROADMAP queue 1, item {item})."
+)
+# The ROADMAP item that brings each refused option or subcommand.
+_ITEM = {
+    "--int8": "9",
+    "--implicit": "12",
+    "--placement": "13",
+    "--exported": "16",
+    "export": "16",
+    "train-placement": "14",
+}
 _KERNELS = {
     "none": ({}, {}),
     "output": ({"use_pallas_output": True}, {}),
@@ -76,7 +99,7 @@ def parse_tcp(value: str) -> tuple[str, int] | None:
 def _refuse_later(args, flags) -> bool:
     for flag in flags:
         if getattr(args, flag.lstrip("-").replace("-", "_"), None):
-            print(_LATER.format(flag=flag))
+            print(_LATER.format(flag=flag, item=_ITEM[flag]))
             return True
     return False
 
@@ -101,10 +124,45 @@ def _load(args):
     return params, mcfg
 
 
+def _build_dataset(mcfg, tcfg, font, device, subset=None):
+    """(atlas, device dataset) for ``font``: the monospace grid or the
+    proportional pen walk, at ``mcfg``'s sheet geometry. ``subset`` keeps
+    only those corpus indices (the proportional path synthesizes the whole
+    corpus and slices it, as the JAX package does)."""
+    import torch
+
+    from .fontgen import DeviceDataset, bake_atlas, bake_prop_atlas, build_device_dataset, build_device_dataset_prop
+    from .fontgen.dataset import font_is_monospace
+
+    print("Creating sheet dataset...")
+    spec = replace(SheetSpec(), width=mcfg.sheet_width, height=mcfg.sheet_height, max_chars=mcfg.max_length)
+    if font_is_monospace(font):
+        atlas = bake_atlas(font, spec)
+        return atlas, build_device_dataset(atlas, tcfg.num_samples, device=device, subset=subset)
+    atlas = bake_prop_atlas(font, spec)
+    ds = build_device_dataset_prop(atlas, tcfg.num_samples, device=device)
+    if subset is not None:
+        sub = torch.from_numpy(subset).to(ds.codes.device, torch.long)
+        ds = DeviceDataset(codes=ds.codes[sub], targets_u8=ds.targets_u8[sub])
+    return atlas, ds
+
+
 def cmd_render(args) -> int:
     from .render import render_strings
 
-    if _refuse_later(args, ("--int8", "--implicit", "--placement", "--exported", "--truth")):
+    if args.truth:
+        # The rasterizer's ground truth with full shaping (GSUB ligatures,
+        # GPOS kerning), independent of any model; --hinted grid-fits it.
+        from .fontgen.bmp import write_bmp
+        from .fontgen.shaped import ShapedRenderer
+
+        sheets = ShapedRenderer(args.font, hinted=args.hinted).render_batch(args.strings or TEST_STRINGS)
+        os.makedirs(args.out, exist_ok=True)
+        for i, sheet in enumerate(sheets):
+            write_bmp(os.path.join(args.out, f"string_{i}.bmp"), sheet)
+        print(f"Saved {len(sheets)} shaped ground-truth strings to {args.out}/")
+        return 0
+    if _refuse_later(args, ("--int8", "--implicit", "--placement", "--exported")):
         return 1
     loaded = _load(args)
     if loaded is None:
@@ -159,6 +217,126 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_fontgen(args) -> int:
+    """Write the dataset in the reference's file format, synthesized on
+    ``--device`` in chunks of 2048 sheets; the same files as the JAX
+    package's ``fontgen``."""
+    import shutil
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from .device import resolve_device
+    from .fontgen.bmp import write_bmp
+    from .fontgen.dataset import font_is_monospace
+    from .fontgen.textgen import generate_corpus
+
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"Error: {e}")
+        return 1
+    spec = SheetSpec()
+    out = args.out
+    if os.path.exists(out):
+        print(f"Removing existing directory {out}...")
+        shutil.rmtree(out)
+    os.makedirs(out, exist_ok=True)
+    print(f"Generating text samples in {out}/...")
+    texts = generate_corpus(args.num_samples)
+    with open(os.path.join(out, "data.txt"), "w") as f:
+        f.write("\n".join(texts))
+    print(f"Saved all text data to {out}/data.txt")
+
+    if font_is_monospace(args.font):
+        from .fontgen import bake_atlas, build_layouts, make_synth_ops, synthesize_sheets
+
+        atlas = bake_atlas(args.font, spec)
+        _, grids = build_layouts(atlas, args.num_samples)
+        synth = partial(synthesize_sheets, make_synth_ops(atlas, device))
+    else:
+        from .fontgen.proportional import _synth, bake_prop_atlas, encode_prop_grids, prop_synth_operands
+
+        atlas = bake_prop_atlas(args.font, spec)
+        grids = encode_prop_grids(texts, atlas)
+        synth = partial(_synth, *prop_synth_operands(atlas, device))
+    print("Rendering bitmaps...")
+    chunk = 2048
+    for start in range(0, args.num_samples, chunk):
+        sheets = synth(torch.from_numpy(grids[start : start + chunk].astype(np.int32))).cpu().numpy()
+        for i, sheet in enumerate(sheets):
+            write_bmp(os.path.join(out, f"{start + i + 1}.bmp"), sheet)
+    metadata = (
+        "AI Font Renderer Dataset - Fira Code\n"
+        "==============================\n\n"
+        f"Font: {os.path.basename(args.font)}\n"
+        f"Font size: {int(spec.font_size)}\n"
+        f"Sheet dimensions: {spec.width}x{spec.height}\n"
+        f"Padding: {int(spec.padding)}px\n\n"
+        "Format: Images are numbered sequentially (1.bmp, 2.bmp, etc.)\n"
+        "Text labels are stored line by line in data.txt "
+        "(line 1 corresponds to 1.bmp)\n"
+    )
+    with open(os.path.join(out, "dataset_metadata.txt"), "w") as f:
+        f.write(metadata)
+    print(f"Dataset generation complete. Check the {out}/ directory.")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Evaluate saved weights: the val split's MSE and PSNR on the corpus,
+    and the test strings' MSE against their ground truth, as one JSON line
+    with the JAX package's keys. ``--kernels`` sets only
+    ``use_pallas_output``, as in the bare run."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from .config import TrainConfig
+    from .fontgen.dataset import split_permutation, split_sizes, synthesize_ground_truth
+    from .render import render_batch
+    from .train.step import eval_epoch
+
+    loaded = _load(args)
+    if loaded is None:
+        return 1
+    params, mcfg = loaded
+    mcfg = replace(mcfg, use_pallas_output=_KERNELS[args.kernels][0].get("use_pallas_output", False))
+    device = params["embedding"].device
+    tcfg = TrainConfig(num_samples=args.num_samples)
+    # Only the val split (the 20% the training split permutation holds out)
+    # is synthesized.
+    n = tcfg.num_samples
+    train_size, _ = split_sizes(n, tcfg.validation_split)
+    val_idx = split_permutation(n, tcfg.seed)[train_size:].astype(np.int64)
+    atlas, ds = _build_dataset(mcfg, tcfg, args.font, device, subset=val_idx)
+    b = min(1024, ds.num_samples)
+    steps = ds.num_samples // b
+    idx = torch.arange(steps * b, device=device).reshape(steps, b)
+    w = torch.ones((steps, b), device=device)
+    mse = float(eval_epoch(params, ds, idx, w, mcfg))
+    psnr = 10.0 * np.log10(1.0 / max(mse, 1e-12))
+
+    gt = synthesize_ground_truth(atlas, TEST_STRINGS)
+    pred = render_batch(params, TEST_STRINGS, mcfg)
+    t_mse = float(np.mean((pred - gt) ** 2))
+    print(
+        json.dumps(
+            {
+                "val_mse": round(mse, 8),
+                "val_psnr_db": round(psnr, 2),
+                "val_samples": steps * b,
+                "test_strings_mse": round(t_mse, 8),
+                "test_strings_psnr_db": round(10.0 * np.log10(1.0 / max(t_mse, 1e-12)), 2),
+                "weights": args.weights,
+            }
+        )
+    )
+    return 0
+
+
 def _subcommands(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(prog="python -m ai_font_renderer_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -167,6 +345,11 @@ def _subcommands(argv: list[str]) -> int:
     p_ren.add_argument("--weights", default="font_renderer.npz")
     p_ren.add_argument("--out", default=default_output_dir())
     p_ren.add_argument("--fast", action="store_true", help="bf16 frontend")
+    p_ren.add_argument("--truth", action="store_true",
+                       help="rasterize shaped ground truth (GSUB+GPOS) instead of model inference")
+    p_ren.add_argument("--hinted", action="store_true",
+                       help="with --truth: FreeType-style vertical grid fit")
+    p_ren.add_argument("--font", default=FIRACODE_PATH)
     p_srv = sub.add_parser("serve", help="batched render server on a unix socket")
     p_srv.add_argument("--weights", default="font_renderer.npz")
     p_srv.add_argument("--socket", default="/tmp/afr.sock")
@@ -179,33 +362,36 @@ def _subcommands(argv: list[str]) -> int:
     p_srv.add_argument("--tcp", default=None, metavar="HOST:PORT")
     p_srv.add_argument("--tls-cert", default=None)
     p_srv.add_argument("--tls-key", default=None)
+    p_gen = sub.add_parser("fontgen", help="export dataset BMPs + data.txt")
+    p_gen.add_argument("--num-samples", type=int, default=150000)
+    p_gen.add_argument("--out", default="train_input")
+    p_gen.add_argument("--font", default=FIRACODE_PATH)
+    p_ev = sub.add_parser("eval", help="val MSE/PSNR of saved weights")
+    p_ev.add_argument("--weights", default="font_renderer.npz")
+    p_ev.add_argument("--num-samples", type=int, default=150000)
+    p_ev.add_argument("--font", default=FIRACODE_PATH)
+    p_ev.add_argument("--kernels", choices=sorted(_KERNELS), default="none",
+                      help="output or fused: the projection kernel K1 (only use_pallas_output is taken)")
     # Options of later slices are accepted so that they fail with a clear
     # message rather than a usage error.
-    p_ren.add_argument("--truth", action="store_true", help="not ported yet")
     p_ren.add_argument("--implicit", default=None, help="not ported yet")
     p_ren.add_argument("--placement", default=None, help="not ported yet")
     for p in (p_ren, p_srv):
         p.add_argument("--int8", action="store_true", help="not ported yet")
         p.add_argument("--exported", default=None, help="not ported yet")
+    for p in (p_ren, p_srv, p_gen, p_ev):
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    return {"render": cmd_render, "serve": cmd_serve}[args.cmd](args)
+    return {"render": cmd_render, "serve": cmd_serve, "fontgen": cmd_fontgen, "eval": cmd_eval}[args.cmd](args)
 
 
 def run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=False, device=None):
-    """Build the device dataset from ``font`` and train; -> TrainResult."""
-    from .config import FIRACODE_PATH
+    """Build the device dataset from ``font`` (monospace or proportional)
+    and train; -> TrainResult."""
     from .device import resolve_device
-    from .fontgen import bake_atlas, build_device_dataset
-    from .fontgen.dataset import require_monospace
     from .train import train
 
-    font = font or FIRACODE_PATH
-    dev = resolve_device(device)
-    require_monospace(font)
-    print("Creating sheet dataset...")
-    spec = replace(SheetSpec(), width=mcfg.sheet_width, height=mcfg.sheet_height, max_chars=mcfg.max_length)
-    ds = build_device_dataset(bake_atlas(font, spec), tcfg.num_samples, device=dev)
+    _, ds = _build_dataset(mcfg, tcfg, font or FIRACODE_PATH, resolve_device(device))
     print(
         "Training attention-based sheet renderer with reduced embedding "
         f"dimensions ({mcfg.embedding_dim}) and learned positional encoding..."
@@ -218,8 +404,6 @@ def run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=
 
 
 def _train_parser() -> argparse.ArgumentParser:
-    from .config import FIRACODE_PATH
-
     parser = argparse.ArgumentParser(prog="python -m ai_font_renderer_tpu_torch")
     parser.add_argument("--train", action="store_true")
     parser.add_argument("--samples", type=int, default=None)
@@ -304,10 +488,10 @@ def _refuse_later_training(args) -> bool:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] in ("render", "serve"):
+    if argv and argv[0] in ("render", "serve", "fontgen", "eval"):
         return _subcommands(argv)
-    if argv and argv[0] in ("fontgen", "eval", "export", "train-placement"):
-        print(_LATER.format(flag=argv[0]))
+    if argv and argv[0] in ("export", "train-placement"):
+        print(_LATER.format(flag=argv[0], item=_ITEM[argv[0]]))
         return 1
 
     parser = _train_parser()
@@ -321,16 +505,13 @@ def main(argv: list[str] | None = None) -> int:
     if _refuse_later_training(args):
         return 1
     from .device import resolve_device
-    from .fontgen.dataset import require_monospace
     from .render import render_strings
     from .utils.checkpoint import save_params
 
     try:
         device = resolve_device(args.device)
         mcfg, tcfg = _configs(args)
-        if args.train or not os.path.exists(args.weights):
-            require_monospace(args.font)
-    except (RuntimeError, ValueError, NotImplementedError) as e:
+    except (RuntimeError, ValueError) as e:
         print(f"Error: {e}")
         return 1
     output_dir = args.output or default_output_dir()

@@ -1,7 +1,8 @@
-"""Dataset assembly: corpus -> tensors on the device (monospace fonts).
+"""Dataset assembly: corpus -> tensors on the device, for monospace and
+proportional fonts, and the reference's disk format read back.
 
-The port of the monospace half of ai_font_renderer_tpu/fontgen/dataset.py.
-The corpus lives on the device:
+The port of ai_font_renderer_tpu/fontgen/dataset.py. The corpus lives on
+the device:
 
   * ``codes``      int32 [N, 100]  model inputs (ord codes, zero-padded);
   * ``targets_u8`` uint8 [N, H, W] sheets synthesized once on the device by
@@ -10,7 +11,10 @@ The corpus lives on the device:
 and a batch is gathered and dequantized on the device, so the host never
 touches pixel data. The host-side layout (strings -> grids -> codes) is
 cached under ``.cache/torch_corpus/``, a directory of the port's own.
-Proportional fonts (Montserrat) come with a later slice.
+A proportional font (Montserrat) is laid out by the pen walk of
+``proportional.py`` and synthesized by its einsums. Synthesis runs in
+chunks and pads none: the JAX package pads the last chunk to keep one
+compiled shape, which eager torch does not need, and the rows are the same.
 """
 
 from __future__ import annotations
@@ -19,22 +23,25 @@ import hashlib
 import json
 import os
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..config import PRINTABLE_ASCII, SheetSpec
 from ..device import resolve_device
-from .atlas import GlyphAtlas
+from .atlas import GlyphAtlas, bake_atlas
 from .layout import encode_codes, encode_grids
-from .sheets import make_synth_ops, synthesize_sheets
-from .textgen import generate_corpus
-
-_PROPORTIONAL = (
-    "{font} is a proportional font (several advances or kern pairs); its "
-    "dataset path comes with a later slice of the port (ROADMAP queue 1, "
-    "item 7). Train with a monospace font such as the default FiraCode."
+from .proportional import (
+    PropAtlas,
+    _synth,
+    bake_prop_atlas,
+    encode_prop_grids,
+    prop_synth_operands,
+    synthesize_prop_host,
 )
+from .sheets import make_synth_ops, synthesize_sheets, synthesize_sheets_host
+from .textgen import generate_corpus
 
 
 @dataclass
@@ -137,6 +144,119 @@ def build_device_dataset(
     return DeviceDataset(codes=torch.from_numpy(codes).to(dev), targets_u8=targets)
 
 
+def _to_u8(sheets: torch.Tensor) -> torch.Tensor:
+    return torch.round(sheets * 255.0).to(torch.uint8)
+
+
+def build_device_dataset_prop(
+    atlas: PropAtlas,
+    num_samples: int,
+    base_seed: int = 42,
+    synth_batch: int = 1024,
+    device: str | torch.device | None = None,
+) -> DeviceDataset:
+    """Proportional-font corpus -> device tensors (the Montserrat config):
+    the same corpus strings, laid out with the font's advances and kerning
+    on the coarse placement grid, synthesized on ``device`` in chunks of
+    ``synth_batch`` sheets."""
+    texts = generate_corpus(num_samples, base_seed=base_seed)
+    codes = encode_codes(texts, atlas.spec.max_chars)
+    grids = encode_prop_grids(texts, atlas)
+    dev = resolve_device(device)
+    ops = prop_synth_operands(atlas, dev)
+    grids_t = torch.from_numpy(grids).to(dev)
+    chunks = [_to_u8(_synth(*ops, grids_t[s : s + synth_batch])) for s in range(0, num_samples, synth_batch)]
+    spec = atlas.spec
+    targets = torch.cat(chunks) if chunks else torch.zeros((0, spec.height, spec.width), dtype=torch.uint8, device=dev)
+    return DeviceDataset(codes=torch.from_numpy(codes).to(dev), targets_u8=targets)
+
+
+def synthesize_ground_truth(
+    atlas,
+    strings: list[str],
+    on_device: bool = False,
+    synth_batch: int = 1024,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """Ground-truth sheets float32 [N, H, W] for any strings, either atlas
+    type: what a perfect model would output. The numpy oracle by default;
+    ``on_device=True`` synthesizes in chunks of ``synth_batch`` on
+    ``device`` (the card unless ``"cpu"``), on the same 8-bit grid."""
+    if isinstance(atlas, GlyphAtlas):
+        grids = encode_grids(strings, atlas.advance_table(), atlas.spec, atlas.n_lines, atlas.n_slots)
+        if not on_device:
+            return synthesize_sheets_host(atlas, grids)
+        synth = partial(synthesize_sheets, make_synth_ops(atlas, resolve_device(device)))
+    else:
+        grids = encode_prop_grids(strings, atlas)
+        if not on_device:
+            return synthesize_prop_host(atlas, grids)
+        synth = partial(_synth, *prop_synth_operands(atlas, resolve_device(device)))
+    grids_t = torch.from_numpy(grids.astype(np.int32))
+    chunks = [synth(grids_t[s : s + synth_batch]).cpu().numpy() for s in range(0, len(grids), synth_batch)]
+    if not chunks:
+        return np.zeros((0, atlas.spec.height, atlas.spec.width), np.float32)
+    return np.concatenate(chunks)
+
+
+def bake_font_atlas(font_path: str, proportional: bool = False):
+    """The atlas for ``font_path``: the fixed-grid :class:`GlyphAtlas` by
+    default, the proportional variant atlas with ``proportional=True``."""
+    return bake_prop_atlas(font_path) if proportional else bake_atlas(font_path)
+
+
+def unit_ground_truth(atlas, strings: list[str]) -> np.ndarray:
+    """float32 ground-truth sheets in [0, 1] for ``strings``, either atlas
+    type: :func:`synthesize_ground_truth` as a plain np.float32 array."""
+    return np.asarray(synthesize_ground_truth(atlas, strings), np.float32)
+
+
+def load_string_dataset(
+    data_dir: str = "train_input",
+    num_samples: int = 50000,
+    sheet_height: int = 80,
+    sheet_width: int = 240,
+    max_chars: int = 100,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Read a dataset written in the reference's file format (line i of
+    ``data.txt`` is ``(i+1).bmp``) -> (codes int32 [N, max_chars], targets
+    float32 [N, H, W]). Raises ValueError on too few strings and
+    FileNotFoundError on a missing image."""
+    from .bmp import read_bmp
+
+    strings_path = os.path.join(data_dir, "data.txt")
+    with open(strings_path) as f:
+        strings = f.read().splitlines()
+    if len(strings) < num_samples:
+        raise ValueError(
+            f"Not enough strings in {strings_path}. "
+            f"Expected {num_samples}, got {len(strings)}"
+        )
+    targets = np.zeros((num_samples, sheet_height, sheet_width), np.float32)
+    for i in range(num_samples):
+        image_path = os.path.join(data_dir, f"{i + 1}.bmp")
+        if not os.path.exists(image_path):
+            raise FileNotFoundError(f"Image file not found: {image_path}")
+        targets[i] = read_bmp(image_path)
+    codes = encode_codes(strings[:num_samples], max_chars)
+    return codes, targets
+
+
+def device_dataset_from_disk(
+    data_dir: str,
+    num_samples: int,
+    sheet_height: int = 80,
+    sheet_width: int = 240,
+    max_chars: int = 100,
+    device: str | torch.device | None = None,
+) -> DeviceDataset:
+    """A disk dataset -> uint8 tensors on ``device``, ready to train on."""
+    codes, targets = load_string_dataset(data_dir, num_samples, sheet_height, sheet_width, max_chars)
+    dev = resolve_device(device)
+    u8 = np.round(targets * 255.0).astype(np.uint8)
+    return DeviceDataset(codes=torch.from_numpy(codes).to(dev), targets_u8=torch.from_numpy(u8).to(dev))
+
+
 def font_is_monospace(font_path: str, charset: str | None = None) -> bool:
     """True when the fixed-grid pipeline is exact for ``font_path``: one
     advance for every charset glyph AND no kern pairs. FiraCode: monospace
@@ -149,12 +269,6 @@ def font_is_monospace(font_path: str, charset: str | None = None) -> bool:
     if len({font.advance(font.glyph_id(ord(c))) for c in charset}) != 1:
         return False
     return len(KerningTable(font_path, charset, SheetSpec().font_size)) == 0
-
-
-def require_monospace(font_path: str) -> None:
-    """Raise for a font this slice of the port cannot lay out."""
-    if not font_is_monospace(font_path):
-        raise NotImplementedError(_PROPORTIONAL.format(font=os.path.basename(font_path)))
 
 
 def split_sizes(n: int, validation_split: float) -> tuple[int, int]:

@@ -4,12 +4,16 @@ the CUDA kernels, their plain versions and the autograd functions.
 ``fused_attention`` and ``fused_attention2`` are the port's counterparts of
 the JAX package's two entry points (ai_font_renderer_tpu/ops/
 fused_attention.py). Both are ``torch.autograd.Function``s, giving
-gradients to x and to all eight weights, over two CUDA sources chosen by
-x's dtype alone: bf16 takes the tensor-core kernels of
+gradients to x and to all eight weights, over three CUDA sources chosen by
+x's shape and dtype. At the shapes the register-tiled kernels take
+(``kernel_takes``: a head width of 8, 16 or 32, E <= 32, S <= 128 in f32
+or S <= 112 in bf16), bf16 takes the tensor-core kernels of
 csrc/attention_mma.cu (``attention_mma_fwd``, ``attention_mma_bwd``), f32
 the CUDA-core kernels of csrc/fused_attention.cu (one cluster of H blocks
 a sample, a block a head; f32 products on tensor cores would be TF32).
-Either way:
+Every other shape takes the general kernels of csrc/attention_wide.cu
+(``attention_wide_fwd``, ``attention_wide_bwd``: tiled GEMMs and a warp a
+row), in either dtype, as the TPU kernels take any E and S. Either way:
 
 * v1 (``fused_attention``): forward K5 (``_fwd_kernel``), backward K6
   (``_bwd_kernel``), which regenerates the dropout mask from the seed;
@@ -23,7 +27,8 @@ versions, forward and backward, on the card and in the plain versions, see
 the same mask for the same seed. The seed is a 1-element int32 tensor on
 x's device that the kernels read from device memory; rate 0 needs none.
 
-On CUDA tensors the functions launch the kernels, for any batch, or raise;
+On CUDA tensors the functions launch the kernels, for any batch and
+shape, or raise;
 on CPU tensors they run the plain versions: the forward is the model's
 attention math with the mask applied where the TPU kernel applies it, the
 backward is the TPU kernel's backward written out line by line
@@ -31,7 +36,9 @@ backward is the TPU kernel's backward written out line by line
 count: ``fused_attention.launches`` (K5), ``fused_attention2.launches``
 (K7), ``fused_attention_backward.launches`` (K6) and
 ``fused_attention2_backward.launches`` (K8); ``attention_mma_fwd.launches``
-and ``attention_mma_bwd.launches`` count the bf16 ones among them.
+and ``attention_mma_bwd.launches`` count the bf16 ones among them at the
+register-tiled shapes, ``attention_wide_fwd.launches`` and
+``attention_wide_bwd.launches`` those at every other shape.
 """
 
 from __future__ import annotations
@@ -50,6 +57,14 @@ KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
 _SMEM_LIMIT = 232448
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_WIDE_SIGNATURES = {
+    "afr_attention_wide_fwd": ([_P] * 13 + [_I] * 6 + [ctypes.c_uint, ctypes.c_float, _P], _I),
+    "afr_attention_wide_bwd": (
+        [_P] * 15 + [_I] * 6 + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, _P], _I,
+    ),
+    "afr_attention_wide_shape_ok": ([_I, _I, _I], _I),
+    "afr_attention_wide_work_floats": ([_I] * 5, ctypes.c_longlong),
+}
 _MMA_SIGNATURES = {
     "afr_attention_mma_fwd": ([_P] * 12 + [_I] * 5 + [ctypes.c_uint, ctypes.c_float, _P], _I),
     "afr_attention_mma_bwd": (
@@ -187,8 +202,8 @@ def _check_cuda(x: torch.Tensor, weights, heads: int) -> None:
     E = x.shape[2]
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 or bfloat16 tensor")
-    if E % heads or 32 % (E // heads):
-        raise ValueError(f"head width E/H = {E}/{heads} must divide 32")
+    if heads < 1 or E % heads:
+        raise ValueError(f"E = {E} must be a multiple of the {heads} heads")
     for k in KEYS:
         t = weights[k]
         shape = (E, E) if k.startswith("w") else (E,)
@@ -197,6 +212,18 @@ def _check_cuda(x: torch.Tensor, weights, heads: int) -> None:
             or not t.is_contiguous() or t.device != x.device
         ):
             raise ValueError(f"{k} must be a contiguous float32 {shape} tensor on {x.device}")
+
+
+def kernel_takes(S: int, E: int, heads: int, dtype: torch.dtype) -> bool:
+    """Whether the register-tiled kernels take x [*, S, E] of ``dtype``
+    with ``heads`` heads: a head width E/H of 8, 16 or 32 and E <= 32 in
+    both sources; S <= 128 in f32 (csrc/fused_attention.cu ``shape_ok``),
+    S <= 112 in bf16 (csrc/attention_mma.cu ``shape_ok``). The entry points
+    launch the general kernels (csrc/attention_wide.cu) at every other
+    shape. Loads no library."""
+    if heads < 1 or E < 1 or E > 32 or E % heads or E // heads not in (8, 16, 32):
+        return False
+    return 1 <= S <= {torch.float32: 128, torch.bfloat16: 112}.get(dtype, 0)
 
 
 def _check_f32(x, heads, backward: bool):
@@ -230,14 +257,18 @@ def _mode(rate: float, stored: bool) -> int:
 
 def _launch_fwd(x, weights, heads, rate, seed, store_mask, entry):
     """K5 (or K7 with ``store_mask``) on CUDA tensors -> (out, mask or
-    None): bf16 on the tensor cores (``attention_mma_fwd``), f32 on the
-    CUDA cores; adds one to ``entry.launches``."""
+    None): the general kernels at a shape the register-tiled ones do not
+    take (``attention_wide_fwd``), else bf16 on the tensor cores
+    (``attention_mma_fwd``) and f32 on the CUDA cores; adds one to
+    ``entry.launches``."""
     _check_cuda(x, weights, heads)
-    if x.dtype == torch.bfloat16:
-        out, mask = attention_mma_fwd(x, weights, heads, rate, seed, store_mask)
-        entry.launches += int(x.shape[0] > 0)
-        return out, mask
     B, S, E = x.shape
+    wide = not kernel_takes(S, E, heads, x.dtype)
+    if wide or x.dtype == torch.bfloat16:
+        launch = attention_wide_fwd if wide else attention_mma_fwd
+        out, mask = launch(x, weights, heads, rate, seed, store_mask)
+        entry.launches += int(B > 0)
+        return out, mask
     mode = _mode(rate, store_mask)
     lib = _check_f32(x, heads, backward=False)
     x = _aligned(x)
@@ -283,16 +314,20 @@ def _check_backward(x, g, heads, mask):
 
 def _launch_bwd(x, g, weights, heads, rate, seed, mask, entry):
     """K6 (mask regenerated from ``seed``) or K8 (``mask`` read) on CUDA
-    tensors -> (dx, grads): bf16 on the tensor cores
-    (``attention_mma_bwd``), f32 on the CUDA cores; adds one to
-    ``entry.launches``. Each block writes its sample's parameter gradients;
-    their sum over the batch is taken here, so no two runs differ in a bit."""
+    tensors -> (dx, grads): the general kernels at a shape the
+    register-tiled ones do not take (``attention_wide_bwd``), else bf16 on
+    the tensor cores (``attention_mma_bwd``) and f32 on the CUDA cores;
+    adds one to ``entry.launches``. Each block writes its sample's
+    parameter gradients; their sum over the batch is taken here, so no two
+    runs differ in a bit."""
     _check_cuda(x, weights, heads)
-    if x.dtype == torch.bfloat16:
-        dx, grads = attention_mma_bwd(x, g, weights, heads, rate, seed, mask)
-        entry.launches += int(x.shape[0] > 0)
-        return dx, grads
     B, S, E = x.shape
+    wide = not kernel_takes(S, E, heads, x.dtype)
+    if wide or x.dtype == torch.bfloat16:
+        launch = attention_wide_bwd if wide else attention_mma_bwd
+        dx, grads = launch(x, g, weights, heads, rate, seed, mask)
+        entry.launches += int(B > 0)
+        return dx, grads
     g = _check_backward(x, g, heads, mask)
     lib = _check_f32(x, heads, backward=True)
     x, g = _aligned(x), _aligned(g)
@@ -339,9 +374,7 @@ def attention_mma_fwd(x, weights, heads: int, dropout_rate: float = 0.0, seed=No
     _check_seed(seed, x, dropout_rate)
     rate = float(dropout_rate)
     if x.device.type == "cpu":
-        mask = _keep_mask(x, heads, rate, seed) if rate > 0.0 else None
-        out = fused_attention_reference(x, weights, heads, mask=mask, rate=rate)
-        return out, mask.to(torch.uint8) if store_mask and mask is not None else None
+        return _plain_forward(x, weights, heads, rate, seed, store_mask)
     lib = _check_mma(x, weights, heads)
     B, S, E = x.shape
     mode = _mode(rate, store_mask)
@@ -370,10 +403,7 @@ def attention_mma_bwd(x, g, weights, heads: int, dropout_rate: float = 0.0, seed
     launches."""
     rate = float(dropout_rate)
     if x.device.type == "cpu":
-        if rate > 0.0 and mask is None:
-            _check_seed(seed, x, rate)
-            mask = _keep_mask(x, heads, rate, seed)
-        return fused_attention_backward_reference(x, g, weights, heads, rate, mask)
+        return _plain_backward(x, g, weights, heads, rate, seed, mask)
     lib = _check_mma(x, weights, heads)
     g = _check_backward(x, g, heads, mask)
     mode = _mode(rate, mask is not None)
@@ -395,6 +425,106 @@ def attention_mma_bwd(x, g, weights, heads: int, dropout_rate: float = 0.0, seed
     if rc != 0:
         raise RuntimeError(f"bf16 attention backward launch failed: CUDA error {rc}")
     attention_mma_bwd.launches += 1
+    return dx, _split_grads(partials.sum(0), E)
+
+
+def _plain_forward(x, weights, heads, rate, seed, store_mask):
+    """The plain forward of every build of K5/K7 on a CPU tensor -> (out,
+    the uint8 mask when ``store_mask`` and rate > 0, else None)."""
+    mask = _keep_mask(x, heads, rate, seed) if rate > 0.0 else None
+    out = fused_attention_reference(x, weights, heads, mask=mask, rate=rate)
+    return out, mask.to(torch.uint8) if store_mask and mask is not None else None
+
+
+def _plain_backward(x, g, weights, heads, rate, seed, mask):
+    """The plain backward of every build of K6/K8 on a CPU tensor: the
+    ``mask`` given, or drawn from ``seed``."""
+    if rate > 0.0 and mask is None:
+        _check_seed(seed, x, rate)
+        mask = _keep_mask(x, heads, rate, seed)
+    return fused_attention_backward_reference(x, g, weights, heads, rate, mask)
+
+
+def _check_wide(x, weights, heads):
+    """What the general kernels take; raise on anything else."""
+    _check_cuda(x, weights, heads)
+    _, S, E = x.shape
+    lib = _build.load("attention_wide", _WIDE_SIGNATURES)
+    if not lib.afr_attention_wide_shape_ok(S, E, heads):
+        raise ValueError(f"the general attention kernels take S rows of keys within one block's shared "
+                         f"memory, not S={S}, E={E}, H={heads}")
+    return lib
+
+
+def _workspace(lib, x, heads, backward):
+    B, S, E = x.shape
+    n = lib.afr_attention_wide_work_floats(B, S, E, heads, int(backward))
+    return torch.empty(n, dtype=torch.float32, device=x.device)
+
+
+def attention_wide_fwd(x, weights, heads: int, dropout_rate: float = 0.0, seed=None, store_mask: bool = False):
+    """The attention forward at any shape (csrc/attention_wide.cu), f32 or
+    bf16: the general build of K5 and of K7 (``store_mask``: the keep mask
+    is stored, uint8 [B, H, S, S]). x [B, S, E] -> (out, mask or None). On
+    a CPU tensor the plain version. ``attention_wide_fwd.launches`` counts
+    its launches."""
+    _check_seed(seed, x, dropout_rate)
+    rate = float(dropout_rate)
+    if x.device.type == "cpu":
+        return _plain_forward(x, weights, heads, rate, seed, store_mask)
+    lib = _check_wide(x, weights, heads)
+    B, S, E = x.shape
+    mode = _mode(rate, store_mask)
+    out = torch.empty_like(x)
+    mask = torch.empty(B, heads, S, S, dtype=torch.uint8, device=x.device) if mode == 2 else None
+    if B == 0:
+        return out, mask
+    work = _workspace(lib, x, heads, False)
+    with torch.cuda.device(x.device):
+        rc = lib.afr_attention_wide_fwd(
+            x.data_ptr(), *(weights[k].data_ptr() for k in KEYS), out.data_ptr(),
+            mask.data_ptr() if mask is not None else None, seed.data_ptr() if mode else None,
+            work.data_ptr(), B, S, E, heads, int(x.dtype == torch.bfloat16), mode,
+            keep_threshold(rate) if mode else 0, keep_in(rate, x.dtype) if mode else 1.0,
+            _build.stream_handle(x.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"general attention forward launch failed: CUDA error {rc}")
+    attention_wide_fwd.launches += 1
+    return out, mask
+
+
+def attention_wide_bwd(x, g, weights, heads: int, dropout_rate: float = 0.0, seed=None, mask=None):
+    """The attention backward at any shape (csrc/attention_wide.cu), f32 or
+    bf16: the general build of K8 (``mask`` read) and of K6 (the mask
+    regenerated from ``seed``). x, g [B, S, E] -> (dx in x's dtype, {key:
+    f32 gradient}). On a CPU tensor the plain version.
+    ``attention_wide_bwd.launches`` counts its launches."""
+    rate = float(dropout_rate)
+    if x.device.type == "cpu":
+        return _plain_backward(x, g, weights, heads, rate, seed, mask)
+    lib = _check_wide(x, weights, heads)
+    g = _check_backward(x, g, heads, mask)
+    mode = _mode(rate, mask is not None)
+    if mode == 1:
+        _check_seed(seed, x, rate)
+    B, S, E = x.shape
+    dx = torch.empty_like(x)
+    partials = torch.empty(B, 4 * E * E + 4 * E, dtype=torch.float32, device=x.device)
+    if B == 0:
+        return dx, _split_grads(partials.sum(0), E)
+    work = _workspace(lib, x, heads, True)
+    with torch.cuda.device(x.device):
+        rc = lib.afr_attention_wide_bwd(
+            x.data_ptr(), g.data_ptr(), *(weights[k].data_ptr() for k in KEYS),
+            mask.data_ptr() if mode == 2 else None, seed.data_ptr() if mode == 1 else None,
+            dx.data_ptr(), partials.data_ptr(), work.data_ptr(), B, S, E, heads,
+            int(x.dtype == torch.bfloat16), mode, keep_threshold(rate) if mode else 0,
+            keep_in(rate, x.dtype), float(np.float32(1.0 - rate)), _build.stream_handle(x.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"general attention backward launch failed: CUDA error {rc}")
+    attention_wide_bwd.launches += 1
     return dx, _split_grads(partials.sum(0), E)
 
 
@@ -443,8 +573,7 @@ def fused_attention_backward(x, g, weights, heads: int, dropout_rate: float = 0.
     [B, S, E] -> (dx in x's dtype, {key: f32 gradient})."""
     _check_seed(seed, x, dropout_rate)
     if x.device.type == "cpu":
-        mask = _keep_mask(x, heads, dropout_rate, seed) if dropout_rate > 0.0 else None
-        return fused_attention_backward_reference(x, g, weights, heads, dropout_rate, mask)
+        return _plain_backward(x, g, weights, heads, dropout_rate, seed, None)
     return _launch_bwd(x, g, weights, heads, dropout_rate, seed, None, fused_attention_backward)
 
 
@@ -463,9 +592,7 @@ def _forward(x, weights, heads, rate, seed, stored):
     K7 on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type != "cpu":
         return _launch_fwd(x, weights, heads, rate, seed, stored, fused_attention2 if stored else fused_attention)
-    mask = _keep_mask(x, heads, rate, seed) if rate > 0.0 else None
-    out = fused_attention_reference(x, weights, heads, mask=mask, rate=rate)
-    return out, mask.to(torch.uint8) if stored and mask is not None else None
+    return _plain_forward(x, weights, heads, rate, seed, stored)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -524,3 +651,5 @@ fused_attention_backward.launches = 0
 fused_attention2_backward.launches = 0
 attention_mma_fwd.launches = 0
 attention_mma_bwd.launches = 0
+attention_wide_fwd.launches = 0
+attention_wide_bwd.launches = 0

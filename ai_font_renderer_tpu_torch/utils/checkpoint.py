@@ -4,8 +4,9 @@ step checkpoints of a training run.
 The npz format is that of ai_font_renderer_tpu/utils/checkpoint.py: one
 array per flat parameter key plus a ``__config__`` entry holding the
 architecture fields as JSON. A file written by either package loads in the
-other with the same arrays and config. ``.pth`` interop comes with a later
-slice.
+other with the same arrays and config. A name ending in ``.pth`` is the
+reference's bare torch state_dict instead (``torch_interop.py``); it holds
+no config, so loading infers it from the shapes, as the JAX package does.
 
 :class:`CheckpointManager` keeps a run's full state (parameters, AdamW
 moments, step count), its best-weights snapshot and the host's control
@@ -27,6 +28,7 @@ import torch
 from ..config import ModelConfig
 from ..device import resolve_device
 from ..models.font_renderer import infer_model_config, params_from_jax
+from .torch_interop import load_pth, save_pth
 
 MODEL_FILENAME = "font_renderer.npz"
 
@@ -49,27 +51,23 @@ _CONFIG_FIELDS = (
 )
 
 
-def _refuse_pth(filename: str) -> None:
-    if filename.endswith(".pth"):
-        raise NotImplementedError(
-            ".pth interop comes with a later slice of the port "
-            "(ROADMAP queue 1, item 10); use an .npz file"
-        )
-
-
 def save_params(params, filename: str = MODEL_FILENAME, mcfg: ModelConfig | None = None) -> None:
     """Save weights (tensors or arrays) to one npz; with ``mcfg``, embed its
-    architecture fields as the ``__config__`` JSON entry."""
-    _refuse_pth(filename)
+    architecture fields as the ``__config__`` JSON entry. A ``.pth`` name
+    writes the reference's state_dict, without the config."""
+    d = os.path.dirname(filename)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    if filename.endswith(".pth"):
+        save_pth(params, filename)
+        print(f"Model saved to {filename}")
+        return
     flat = {
         k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
         for k, v in params.items()
     }
     if mcfg is not None:
         flat[_CONFIG_KEY] = np.array(json.dumps({f: getattr(mcfg, f) for f in _CONFIG_FIELDS}))
-    d = os.path.dirname(filename)
-    if d:
-        os.makedirs(d, exist_ok=True)
     np.savez(filename, **flat)
     print(f"Model saved to {filename}")
 
@@ -82,15 +80,18 @@ def load_params_with_config(
     """Load weights plus their architecture config -> (params, mcfg | None).
 
     The config comes from the ``__config__`` entry when the file has one,
-    else from the shapes (``infer_model_config``). ``base`` supplies the
-    fields a file does not fix; ``base=None`` returns (params, None).
+    else (an npz without it, or a ``.pth``) from the shapes
+    (``infer_model_config``). ``base`` supplies the fields a file does not
+    fix; ``base=None`` returns (params, None).
     """
-    _refuse_pth(filename)
     dev = resolve_device(device)
-    with np.load(filename) as z:
-        cfg_json = str(z[_CONFIG_KEY][()]) if _CONFIG_KEY in z.files else None
-        arrays = {k: z[k] for k in z.files if k != _CONFIG_KEY}
-    params = params_from_jax(arrays, dev)
+    if filename.endswith(".pth"):
+        params, cfg_json = load_pth(filename, dev), None
+    else:
+        with np.load(filename) as z:
+            cfg_json = str(z[_CONFIG_KEY][()]) if _CONFIG_KEY in z.files else None
+            arrays = {k: z[k] for k in z.files if k != _CONFIG_KEY}
+        params = params_from_jax(arrays, dev)
     print(f"Model loaded from {filename}")
     if base is None:
         return params, None

@@ -15,7 +15,8 @@ Phases, each of which raises on failure, each with its seconds:
    memory and blocks per SM, and the f32 attention kernels'
    (csrc/fused_attention.cu: a cluster of H blocks a sample) registers,
    spills, shared memory, cluster size, blocks per SM and clusters in
-   flight, for each source of the dropout mask.
+   flight, for each source of the dropout mask; the general attention
+   kernels (csrc/attention_wide.cu) build with them.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it: max abs error against the stated tolerance,
    and times from CUDA events for the kernel, the plain version, one
@@ -32,7 +33,10 @@ Phases, each of which raises on failure, each with its seconds:
    the tensor-core forward, K5's without storing the mask), K7's stored
    mask byte for byte against the plain Philox mask, and the backward
    kernels K6 and K8 at batch 1024 in f32 and bf16 (bf16: the tensor-core
-   backward); K4 at M = 200 and 1024 with bf16 mu and at 1024 with f32
+   backward); the general attention kernels, which take the shapes the
+   register-tiled ones do not, at E = 64 and at S = 129 (batch 1024,
+   dropout 0.2, f32 and bf16, forward and backward, the stored mask byte
+   for byte); K4 at M = 200 and 1024 with bf16 mu and at 1024 with f32
    mu, and K9 (K4 on a transposed x) at M = 1024, each on a W with a bf16
    shadow, which the update must rewrite bit for bit (the TMA + wgmma GEMM
    of K3 with the AdamW update as its epilogue; times with and without the
@@ -63,10 +67,26 @@ Phases, each of which raises on failure, each with its seconds:
    configuration, the trained weights through the npz file and rendered
    against the plain path, steps/s of each configuration, and a profile of
    one step.
-6. One JSON line listing every kernel (K1-K9, the operand pass, the
-   GEMMs of K2 and K3, and the bf16 attention forward and backward on
-   tensor cores) with its launches on the
-   main paths (phases 3, 4 and 5 and the K4/K9 A/B; counts are set to 0
+6. Data and weights, through the CLI in this process: `fontgen` for 2048
+   FiraCode samples (data.txt the corpus; the BMPs read back onto the card
+   by `device_dataset_from_disk` bit-equal to `build_device_dataset`) and
+   256 Montserrat ones (the BMPs equal to `synthesize_prop_host`);
+   Montserrat training at full width with `fused` (K1, K2, K4), the corpus
+   cut to 8192 samples, 2 epochs, its first 1024 sheets bit-equal to the
+   oracle, the loss falling, W's shadow built once, steps/s beside phase
+   5's FiraCode `fused`; `eval` of phase 5's `fused` weights on its corpus
+   (4096 val sheets) with `--kernels none` and `output` (val MSE within
+   1e-4 relative, K1 only in the second); `render --truth` for both fonts,
+   hinted and not; the weights through a `.pth`, rendered with phase 3's
+   flags (K1, f32 K5) bit-equal to the npz's render; then a full-width
+   model at E = 64 and at S = 129 with each fused attention flag: two
+   steps at dropout 0.2 and one without against the plain step, through
+   the general attention kernels.
+7. One JSON line listing every kernel (K1-K9, the operand pass, the
+   GEMMs of K2 and K3, the bf16 attention forward and backward on
+   tensor cores, and the general attention forward and backward) with its
+   launches on the
+   main paths (phases 3, 4, 5 and 6 and the K4/K9 A/B; counts are set to 0
    just before each drive and read just after), its error and its times.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
@@ -122,6 +142,9 @@ ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 STEP_ATTN_GRAD_TOL = {"f32": 1e-3, "bf16": 5e-2}
 STEP_LOSS_BF16_TOL = 1e-2
 SHEET_TOL = 1e-4  # rendered sheets, kernels on vs the plain path (f32 frontend)
+# eval's val MSE with K1 (bf16 products) against the plain projection (bf16
+# products too): the same products in another order of sums.
+EVAL_REL_TOL = 1e-4
 # About 0.15 s at the H100's clock: longer than the host takes to queue one
 # timing loop, so the timed calls run back to back on the device.
 SPIN_CYCLES = 300_000_000
@@ -367,8 +390,9 @@ def _k2_parts(cot, out, w, m, k, n, round_rows, gemm_rows) -> dict:
         "tol": "bit for bit",
         "ms": time_ms(lambda: round_bf16(cot, out), 10),
         "plain_ms": time_ms(lambda: round_bf16_reference(cot, out), 5),
-        # The masked pass has no single PyTorch call.
-        "library_ms": None,
+        # The same masked bf16 operand in PyTorch, unpadded: the mask, the
+        # product and the cast.
+        "library_ms": time_ms(lambda: (cot * ((out > 0) & (out < 1))).to(torch.bfloat16), 10),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
@@ -877,6 +901,112 @@ def check_attention_backward(bsz=1024, s=100, e=32, heads=4) -> tuple[list[dict]
     return k6_rows, k8_rows
 
 
+# The general attention kernels' shapes in the kernel checks and on the
+# main path: E = 64 (head width 16) and S = 129, each past both
+# register-tiled kernels.
+WIDE_SHAPES = ((100, 64, 4), (129, 32, 4))
+# The general kernels' bf16 forward against the plain one, relative to the
+# largest |plain| value as the backward's: q, k, v and out are rounded once
+# here and twice (after the product, after the bias) in the plain version,
+# and with E = 64 or S = 300 an output may round 4 bf16 steps away.
+WIDE_FWD_BF16_REL_TOL = 2e-2
+
+
+def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES) -> tuple[list[dict], list[dict]]:
+    """The general attention kernels (csrc/attention_wide.cu) at the shapes
+    the register-tiled ones do not take, at dropout 0.2, f32 and bf16: the
+    forward with the mask stored (K7's general build) and drawn (K5's)
+    against the plain forward fed the plain mask, the stored mask byte for
+    byte; the backward with the mask read (K8's) and regenerated (K6's)
+    against fused_attention_backward_reference within ATTN_BWD_TOL, the
+    two giving the same bits."""
+    from ai_font_renderer_tpu_torch.ops.fused_attention import (
+        attention_wide_bwd,
+        attention_wide_fwd,
+        fused_attention_backward_reference,
+        fused_attention_reference,
+    )
+    from ai_font_renderer_tpu_torch.ops.philox import dropout_keep
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    seed = torch.tensor([11], dtype=torch.int32, device="cuda")
+    fwd_rows, bwd_rows = [], []
+    for s, e, heads in shapes:
+        w = _attn_weights(g, e)
+        mask_shape = (bsz, heads, s, s)
+        mask = dropout_keep(seed, mask_shape, DROPOUT).to(torch.uint8)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
+            gy = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
+            drawn, _ = attention_wide_fwd(x, w, heads, DROPOUT, seed)
+            stored, got_mask = attention_wide_fwd(x, w, heads, DROPOUT, seed, store_mask=True)
+            want = fused_attention_reference(x, w, heads, mask=mask, rate=DROPOUT)
+            k6 = attention_wide_bwd(x, gy, w, heads, DROPOUT, seed)
+            k8 = attention_wide_bwd(x, gy, w, heads, DROPOUT, None, mask)
+            want_dx, want_dw = fused_attention_backward_reference(x, gy, w, heads, DROPOUT, mask)
+            torch.cuda.synchronize()
+            err = float((drawn.float() - want.float()).abs().max())
+            if dt == torch.float32:
+                fwd_ok, tol = err <= ATTN_TOL[dt], ATTN_TOL[dt]
+            else:
+                tol = f"{WIDE_FWD_BF16_REL_TOL} of max |plain|"
+                fwd_ok = err <= WIDE_FWD_BF16_REL_TOL * float(want.float().abs().max())
+            masks_equal = torch.equal(got_mask, mask)
+            dx_rel = _rel(k6[0].float(), want_dx.float())
+            wmax = max(float(v.abs().max()) for v in want_dw.values())
+            w_rel = max(float((k6[1][k] - want_dw[k]).abs().max()) for k in want_dw) / wmax
+            same = torch.equal(k6[0], k8[0]) and all(torch.equal(k6[1][k], k8[1][k]) for k in want_dw)
+            btol = ATTN_BWD_TOL[dt]
+            if not (fwd_ok and masks_equal and torch.equal(drawn, stored) and dx_rel <= btol
+                    and w_rel <= btol and same):
+                raise AssertionError(
+                    f"general attention S={s} E={e} {dt}: forward max abs err {err} (tol {tol}), mask "
+                    f"equal {masks_equal}, drawn equals stored {torch.equal(drawn, stored)}; backward dx "
+                    f"rel {dx_rel}, weights rel {w_rel} (tol {btol}), K6 equals K8 {same}")
+            item = x.element_size()
+            tag = f"B={bsz},S={s},E={e},H={heads},{str(dt).replace('torch.', '')},dropout={DROPOUT}"
+            mha, params = _attn_library(e, heads, w, dt)
+            xt = x.transpose(0, 1)
+            with torch.no_grad():
+                lib_fwd = time_ms(lambda: mha(xt, DROPOUT, True), 20)
+            lib_params = [p.clone().requires_grad_() for p in params]
+            xg = xt.detach().requires_grad_()
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                mha(xg, DROPOUT, True, lib_params), [xg, *lib_params], gy.transpose(0, 1)), 10)
+            weight_bytes = 4 * (4 * e * e + 4 * e)
+            bound_ms, bound_by = _bound(2 * bsz * s * e * item + weight_bytes + mask.numel(),
+                                        bsz * (8 * s * e * e + 4 * s * s * e), _attn_peak(dt))
+            fwd_ms = time_ms(lambda: attention_wide_fwd(x, w, heads, DROPOUT, seed, True), 20)
+            row = {
+                "shape": tag, "max_abs_err": err, "tol": tol, "mask_equal": masks_equal,
+                "ms": fwd_ms,
+                "plain_ms": time_ms(lambda: fused_attention_reference(
+                    x, w, heads, mask=dropout_keep(seed, mask_shape, DROPOUT), rate=DROPOUT), 5),
+                "library_ms": lib_fwd, "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            print(f"[K5/K7 general attention_wide_fwd] {json.dumps(row)}", flush=True)
+            fwd_rows.append(row)
+            bound_ms, bound_by = _bound(3 * bsz * s * e * item + 2 * weight_bytes + mask.numel(),
+                                        bsz * (22 * s * e * e + 12 * s * s * e), _attn_peak(dt))
+            bwd_ms = time_ms(lambda: attention_wide_bwd(x, gy, w, heads, DROPOUT, None, mask), 10)
+            row = {
+                "shape": tag,
+                "max_abs_err": float((k6[0].float() - want_dx.float()).abs().max()),
+                "dx_rel_err": dx_rel, "dw_rel_err": w_rel, "tol": f"{btol} of max |plain|",
+                "ms": bwd_ms,
+                "plain_ms": time_ms(lambda: fused_attention_backward_reference(
+                    x, gy, w, heads, DROPOUT, mask), 5),
+                # Forward + backward of PyTorch's attention with dropout
+                # under autograd: compare with fwd_plus_bwd_ms.
+                "library_ms": lib_bwd, "fwd_plus_bwd_ms": fwd_ms + bwd_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            print(f"[K6/K8 general attention_wide_bwd] {json.dumps(row)}", flush=True)
+            bwd_rows.append(row)
+            del drawn, stored, got_mask, want, k6, k8, want_dx, want_dw, lib_params, xg
+    return fwd_rows, bwd_rows
+
+
 def check_dw_adamw_xt(m=1024, k=6400, n=19200) -> list[dict]:
     """K9 (K4 with x transposed to [K, M]; b1 0.9, b2 0.99, wd 5e-4 fixed)
     against its plain version at step 5 with seeded moments and bf16 mu,
@@ -976,6 +1106,8 @@ def _kernel_fns():
         "fused_attention2_backward": ops.fused_attention2_backward,
         "attention_mma_fwd": ops.attention_mma_fwd,
         "attention_mma_bwd": ops.attention_mma_bwd,
+        "attention_wide_fwd": ops.attention_wide_fwd,
+        "attention_wide_bwd": ops.attention_wide_bwd,
         "fused_dw_adamw_xt": ops.fused_dw_adamw_xt,
     }
 
@@ -1374,7 +1506,7 @@ def _attention_step_checks(results, batch, base, fast) -> None:
             raise AssertionError(f"one step {name} vs plain: loss rel {loss_rel}, grad rel {grad_rel}")
 
 
-def phase_train(workdir: str, card: str) -> dict:
+def phase_train(workdir: str, card: str) -> tuple[dict, dict]:
     """Phase 5: the trainer at full width through ``train()``, in four
     kernel configurations, then the checks around it."""
     from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, ModelConfig, TrainConfig, replace
@@ -1497,7 +1629,306 @@ def phase_train(workdir: str, card: str) -> dict:
             _profile_step(state, ds, batch_idx[0], mcfg, tcfg, name)
         del state
     print(f"[train] steps/s at batch 1024: {json.dumps(rates)} ({card})", flush=True)
+    return counts, rates
+
+
+def _cli(argv: list[str], tag: str) -> tuple[int, list[str]]:
+    """Run the port's CLI in this process -> (exit code, its output lines),
+    each line echoed with ``tag``."""
+    import contextlib
+    import io
+
+    from ai_font_renderer_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[{tag}] | {line}", flush=True)
+    return rc, lines
+
+
+def _check_fontgen(workdir: str) -> None:
+    """6a: ``fontgen`` for 2048 FiraCode samples (data.txt the corpus, the
+    BMPs read back onto the card bit-equal to the device dataset) and for
+    256 Montserrat samples (the BMPs equal to the numpy oracle's u8)."""
+    from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, MONTSERRAT_PATH
+    from ai_font_renderer_tpu_torch.fontgen import (
+        bake_atlas,
+        bake_prop_atlas,
+        build_device_dataset,
+        encode_prop_grids,
+        generate_corpus,
+        read_bmp,
+        synthesize_prop_host,
+    )
+    from ai_font_renderer_tpu_torch.fontgen.dataset import device_dataset_from_disk
+
+    out = os.path.join(workdir, "fontgen_firacode")
+    t0 = time.perf_counter()
+    rc, _ = _cli(["fontgen", "--num-samples", "2048", "--out", out], "fontgen")
+    t_gen = time.perf_counter() - t0
+    with open(os.path.join(out, "data.txt")) as f:
+        if rc != 0 or f.read() != "\n".join(generate_corpus(2048)):
+            raise AssertionError(f"fontgen FiraCode: exit {rc} or data.txt is not the corpus")
+    t0 = time.perf_counter()
+    disk = device_dataset_from_disk(out, 2048, device="cuda")
+    t_read = time.perf_counter() - t0
+    built = build_device_dataset(bake_atlas(FIRACODE_PATH), 2048, device="cuda")
+    if not (torch.equal(disk.targets_u8, built.targets_u8) and torch.equal(disk.codes, built.codes)):
+        raise AssertionError("fontgen FiraCode: the BMPs read back differ from the device dataset")
+    out = os.path.join(workdir, "fontgen_montserrat")
+    t0 = time.perf_counter()
+    rc, _ = _cli(["fontgen", "--num-samples", "256", "--out", out, "--font", MONTSERRAT_PATH], "fontgen")
+    t_prop = time.perf_counter() - t0
+    atlas = bake_prop_atlas(MONTSERRAT_PATH)
+    want = np.round(synthesize_prop_host(atlas, encode_prop_grids(generate_corpus(256), atlas)) * 255)
+    got = np.stack([read_bmp(os.path.join(out, f"{i + 1}.bmp")) for i in range(256)])
+    if rc != 0 or not np.array_equal(np.round(got * 255), want):
+        raise AssertionError(f"fontgen Montserrat: exit {rc} or the BMPs differ from the numpy oracle")
+    print(f"[data] fontgen: 2048 FiraCode samples written in {t_gen:.2f} s, read back onto the card in "
+          f"{t_read:.2f} s, u8 equal to build_device_dataset; 256 Montserrat samples in {t_prop:.2f} s, "
+          "BMPs equal to synthesize_prop_host", flush=True)
+
+
+def _train_montserrat(card: str, firacode_fused: float) -> dict:
+    """6b: Montserrat at full width through --kernels fused (K1, K2, K4):
+    the corpus cut to 8192 samples, 2 epochs -> the launches."""
+    from ai_font_renderer_tpu_torch.config import MONTSERRAT_PATH, ModelConfig, TrainConfig
+    from ai_font_renderer_tpu_torch.fontgen import (
+        bake_prop_atlas,
+        build_device_dataset_prop,
+        encode_prop_grids,
+        generate_corpus,
+        synthesize_prop_host,
+    )
+    from ai_font_renderer_tpu_torch.fontgen.proportional import _synth, prop_synth_operands
+    from ai_font_renderer_tpu_torch.train import train
+    from ai_font_renderer_tpu_torch.train.step import state_from_params
+
+    n_samples, epochs, chunk = 8192, 2, 1024
+    print(f"[data] Montserrat corpus cut from 150000 to {n_samples} samples "
+          f"({int(n_samples * 0.8) // 1024} steps of 1024 an epoch), {epochs} epochs", flush=True)
+    t0 = time.perf_counter()
+    atlas = bake_prop_atlas(MONTSERRAT_PATH)
+    t_bake = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = build_device_dataset_prop(atlas, n_samples, synth_batch=chunk, device="cuda")
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    cells_gb = chunk * atlas.n_lines * atlas.n_slots * atlas.cell_h * atlas.cell_w * 4 / 1e9
+    t0 = time.perf_counter()
+    grids = encode_prop_grids(generate_corpus(chunk), atlas)
+    t_layout = time.perf_counter() - t0
+    host = np.round(synthesize_prop_host(atlas, grids) * 255)
+    diff = int((ds.targets_u8[:chunk].cpu().numpy() != host.astype(np.uint8)).sum())
+    ops, grids_dev = prop_synth_operands(atlas, torch.device("cuda")), torch.from_numpy(grids).cuda()
+    synth_ms = time_ms(lambda: _synth(*ops, grids_dev), 3)
+    print(f"[data] Montserrat atlas {tuple(atlas.table.shape)} (stride {atlas.stride}, {atlas.n_slots} "
+          f"slots, {atlas.n_lines} lines) baked in {t_bake:.2f} s; {n_samples} sheets laid out and "
+          f"synthesized on the card in {t_data:.2f} s; a chunk of {chunk}: layout on the host "
+          f"{t_layout:.3f} s, synthesis on the card {synth_ms:.3f} ms (CUDA events), gathered cells "
+          f"{cells_gb:.3f} GB; first {chunk} u8 sheets vs numpy oracle: {diff} bytes differ ({card})",
+          flush=True)
+    if diff:
+        raise AssertionError(f"Montserrat sheets differ from the oracle in {diff} bytes")
+
+    mcfg = ModelConfig(use_pallas_output=True)
+    tcfg = TrainConfig(num_epochs=epochs, num_samples=n_samples, checkpoint_every=0, fused_dw_adamw=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = train(ds, mcfg, tcfg, log=lambda msg: print(f"[data montserrat] {msg}", flush=True))
+    torch.cuda.synchronize()
+    counts, builds = _counts(), _builds()
+    losses = [h["train_loss"] for h in res.history]
+    vals = [h["val_loss"] for h in res.history]
+    print(f"[data] Montserrat fused: {epochs} epochs in {time.perf_counter() - t0:.2f} s; train loss "
+          f"{losses}; val loss {vals}; launches {counts}; W's bf16 shadow built {builds} times", flush=True)
+    if not (losses[-1] < losses[0] and all(np.isfinite(vals))):
+        raise AssertionError("Montserrat: the train loss did not fall or val is not finite")
+    if builds > 1:
+        raise AssertionError(f"Montserrat built W's shadow {builds} times, want once")
+    for kernel in ("fused_output", "gemm_bf16_bias_clamp", "fused_output_dx", "round_bf16", "gemm_bf16_tn",
+                   "fused_dw_adamw"):
+        if counts[kernel] <= 0:
+            raise AssertionError(f"Montserrat training never launched {kernel}: {counts}")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    batch_idx = torch.randint(0, n_samples, (8, 1024), generator=g, device="cuda")
+    rate = _steps_per_s(state_from_params(res.params, tcfg), ds, batch_idx, mcfg, tcfg)
+    print(f"[data] steps/s at batch 1024, fused: Montserrat {rate}, FiraCode (phase 5) {firacode_fused} "
+          f"({card})", flush=True)
     return counts
+
+
+def _check_eval(weights: str) -> dict:
+    """6c: ``eval`` of phase 5's fused weights on its 20480-sample corpus
+    (4096 val sheets), with --kernels none and output -> the launches."""
+    runs, counts = {}, {}
+    for kernels in ("none", "output"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc, lines = _cli(["eval", "--weights", weights, "--num-samples", "20480", "--kernels", kernels], "eval")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts[kernels] = _counts()
+        result = json.loads(lines[-1]) if rc == 0 and lines else {}
+        keys = ["val_mse", "val_psnr_db", "val_samples", "test_strings_mse", "test_strings_psnr_db", "weights"]
+        if list(result) != keys or result["val_samples"] != 4096:
+            raise AssertionError(f"eval --kernels {kernels}: exit {rc}, {result}")
+        runs[kernels] = result
+        print(f"[data] eval --kernels {kernels}: {seconds:.2f} s; K1 launched "
+              f"{counts[kernels]['fused_output']} times", flush=True)
+    rel = abs(runs["output"]["val_mse"] - runs["none"]["val_mse"]) / runs["none"]["val_mse"]
+    print(f"[data] eval val_mse none {runs['none']['val_mse']} vs output {runs['output']['val_mse']} "
+          f"(rel {rel:.3g}, tol {EVAL_REL_TOL})", flush=True)
+    if rel > EVAL_REL_TOL:
+        raise AssertionError(f"eval: val_mse with K1 differs by {rel} relative")
+    if counts["none"]["fused_output"] != 0 or counts["output"]["fused_output"] <= 0:
+        raise AssertionError(f"eval: K1 launches none {counts['none']}, output {counts['output']}")
+    return {k: counts["none"][k] + counts["output"][k] for k in counts["none"]}
+
+
+def _check_truth(workdir: str) -> None:
+    """6d: ``render --truth`` of the test strings for both fonts, with and
+    without --hinted: 15 BMPs each (host work)."""
+    from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, MONTSERRAT_PATH
+
+    for font in (FIRACODE_PATH, MONTSERRAT_PATH):
+        for hinted in ([], ["--hinted"]):
+            out = os.path.join(workdir, f"truth_{os.path.basename(font)}{'_hinted' if hinted else ''}")
+            t0 = time.perf_counter()
+            rc, _ = _cli(["render", "--truth", "--font", font, "--out", out, *hinted], "truth")
+            seconds = time.perf_counter() - t0
+            files = sorted(os.listdir(out)) if rc == 0 else []
+            if files != sorted(f"string_{i}.bmp" for i in range(15)):
+                raise AssertionError(f"render --truth {font} {hinted}: exit {rc}, files {files}")
+            print(f"[data] render --truth {os.path.basename(font)} {' '.join(hinted)}: 15 BMPs in "
+                  f"{seconds:.2f} s", flush=True)
+
+
+def _check_pth(workdir: str, weights: str) -> dict:
+    """6e: phase 5's fused weights through a .pth, rendered with phase 3's
+    flags (K1, f32 K5): the sheets equal the npz's bit for bit -> the
+    launches of the .pth render."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import replace
+    from ai_font_renderer_tpu_torch.render import render_batch
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config, save_params
+
+    flags = dict(use_pallas_output=True, fused_attention=True)
+    params, mcfg = load_params_with_config(weights, device="cuda")
+    pth = os.path.join(workdir, "trained.pth")
+    save_params(params, pth)
+    from_npz = render_batch(params, TEST_STRINGS, replace(mcfg, **flags))
+    del params
+    torch.cuda.synchronize()
+    _reset_counts()
+    params, pcfg = load_params_with_config(pth, device="cuda")
+    from_pth = render_batch(params, TEST_STRINGS, replace(pcfg, **flags))
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"[data] .pth render of the test strings: launches {counts}; sheets equal the npz's: "
+          f"{np.array_equal(from_pth, from_npz)}", flush=True)
+    if not np.array_equal(from_pth, from_npz) or from_pth.shape != (15, 80, 240):
+        raise AssertionError("the .pth render differs from the npz render")
+    for name in ("fused_output", "gemm_bf16_bias_clamp", "fused_attention"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the .pth render never launched {name}: {counts}")
+    return counts
+
+
+def _train_wide_shapes(card: str) -> dict:
+    """6f: a full-width model at the shapes the register-tiled attention
+    kernels do not take (E = 64; S = 129), with each fused attention flag:
+    two training steps at dropout 0.2 through the general kernels, then one
+    step with dropout off against the plain step on the same weights and
+    batch (loss, and the attention weights' gradients, as phase 5's
+    attention step checks) -> the launches."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig, replace
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.ops.fused_attention import KEYS
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+
+    bsz = 256
+    one_minus_b1 = float(np.float32(1) - np.float32(0.9))
+    counts = {k: 0 for k in _counts()}
+    for (s, e, heads), flag in ((shape, flag) for shape in WIDE_SHAPES
+                                for flag in ("fused_attention", "fused_attention_v2")):
+        mcfg = ModelConfig(max_length=s, embedding_dim=e, num_heads=heads, **{flag: True})
+        gen = torch.Generator(device="cuda").manual_seed(s + e)
+        params = font_renderer.init(gen, mcfg, "cuda")
+        codes = torch.randint(32, 127, (bsz, s), generator=gen, device="cuda", dtype=torch.int32)
+        targets = torch.rand(bsz, mcfg.sheet_height, mcfg.sheet_width, generator=gen, device="cuda")
+        tcfg = TrainConfig(batch_size=bsz, adam_mu_bf16=False)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state = state_from_params(params, tcfg)
+        losses = []
+        for _ in range(2):
+            state, loss = train_step(state, codes, targets, 1e-3, gen, mcfg, tcfg)
+            losses.append(float(loss))
+        del state
+        off = dict(dropout_rate=0.0, fc_dropout_rate=0.0)
+        out = []
+        for cfg in (replace(mcfg, **off), replace(mcfg, fused_attention=False, fused_attention_v2=False, **off)):
+            state, loss = train_step(state_from_params(params, tcfg), codes, targets, 1e-3,
+                                     torch.Generator(device="cuda"), cfg, tcfg)
+            out.append((float(loss), {k: state.mu[k] / one_minus_b1 for k in KEYS}))
+            del state
+        torch.cuda.synchronize()
+        run = _counts()
+        counts = {k: counts[k] + run[k] for k in counts}
+        (loss, grads), (ref_loss, ref_grads) = out
+        loss_rel = abs(loss - ref_loss) / ref_loss
+        scale = max(float(v.abs().max()) for v in ref_grads.values())
+        grad_rel = max(float((grads[k] - ref_grads[k]).abs().max()) for k in KEYS) / scale
+        entry = "fused_attention2" if flag == "fused_attention_v2" else "fused_attention"
+        print(f"[data] S={s}, E={e}, H={heads}, {flag}: losses at dropout 0.2 {losses} in "
+              f"{time.perf_counter() - t0:.2f} s; one step vs plain, dropout off: loss {loss:.8f} vs "
+              f"{ref_loss:.8f} (rel {loss_rel:.3g}, tol {STEP_LOSS_REL_TOL}), gradient of wq..bo max err "
+              f"{grad_rel:.3g} of the largest (tol {STEP_ATTN_GRAD_TOL['f32']}); launches {entry} "
+              f"{run[entry]}, attention_wide_fwd {run['attention_wide_fwd']}, attention_wide_bwd "
+              f"{run['attention_wide_bwd']} ({card})", flush=True)
+        if not (all(np.isfinite(losses)) and loss_rel <= STEP_LOSS_REL_TOL
+                and grad_rel <= STEP_ATTN_GRAD_TOL["f32"]):
+            raise AssertionError(f"S={s} E={e} {flag}: losses {losses}, loss rel {loss_rel}, grad rel {grad_rel}")
+        if min(run[entry], run["attention_wide_fwd"], run["attention_wide_bwd"]) < 3:
+            raise AssertionError(f"S={s} E={e} {flag}: three steps did not take the general kernels: {run}")
+        del params, codes, targets
+    return counts
+
+
+def phase_data(workdir: str, card: str, firacode_fused: float) -> dict:
+    """Phase 6: data and weights through the port's entry points: fontgen,
+    Montserrat training, eval, render --truth and .pth weights; then
+    training at the attention shapes the general kernels serve -> the
+    launches of its main paths."""
+    weights = os.path.join(workdir, "trained.npz")  # phase 5's fused weights
+    seconds = {}
+    t0 = time.perf_counter()
+    _check_fontgen(workdir)
+    seconds["fontgen"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = [_train_montserrat(card, firacode_fused)]
+    seconds["montserrat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts.append(_check_eval(weights))
+    seconds["eval"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _check_truth(workdir)
+    seconds["truth"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts.append(_check_pth(workdir, weights))
+    seconds["pth"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts.append(_train_wide_shapes(card))
+    seconds["wide_shapes"] = time.perf_counter() - t0
+    print(f"[data] seconds by check: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 def _kernel_entry(name, source, replaces, rows, headline, launches, shadow=False) -> dict:
@@ -1554,6 +1985,7 @@ def main() -> int:
     attn_rows = timed("check attention", check_fused_attention)
     drop_rows = timed("check attention dropout", check_attention_dropout)
     k6_rows, k8_rows = timed("check K6/K8", check_attention_backward)
+    wide_fwd_rows, wide_bwd_rows = timed("check general attention", check_attention_wide)
     dx_rows, dw_rows, gemm_rows, mn_rows = timed("check K2/K3", check_backward, round_rows)
     k4_rows = timed("check K4", check_dw_adamw)
     k9_rows = timed("check K9", check_dw_adamw_xt)
@@ -1562,9 +1994,12 @@ def main() -> int:
         params, render_counts = timed("render", phase_render, workdir, card)
         serve_counts = timed("serve", phase_serve, params, workdir)
         del params
-        train_counts = timed("train", phase_train, workdir, card)
+        train_counts, rates = timed("train", phase_train, workdir, card)
+        data_counts = timed("data and weights", phase_data, workdir, card, rates["fused"])
     ab_counts = timed("ab_xt", phase_ab_xt)
-    launches = {k: render_counts[k] + serve_counts[k] + train_counts[k] for k in render_counts}
+    by_phase = {"render": render_counts, "serve": serve_counts, "train": train_counts, "data": data_counts}
+    print(f"[launches] by phase: {json.dumps(by_phase)}", flush=True)
+    launches = {k: sum(c[k] for c in by_phase.values()) for k in render_counts}
     launches["fused_dw_adamw_xt"] = ab_counts["fused_dw_adamw_xt"]
 
     src = "ai_font_renderer_tpu_torch/csrc/"
@@ -1620,6 +2055,16 @@ def main() -> int:
             "ai_font_renderer_tpu/ops/fused_attention.py:427",
             [r for r in k8_rows + k6_rows if "bfloat16" in r["shape"]],
             f"B=1024,S=100,E=32,H=4,bfloat16,dropout={DROPOUT}", launches["attention_mma_bwd"],
+        ),
+        _kernel_entry(
+            "attention_wide_fwd (K5/K7 at other shapes, f32 and bf16)", src + "attention_wide.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:65", wide_fwd_rows,
+            f"B=1024,S=100,E=64,H=4,float32,dropout={DROPOUT}", launches["attention_wide_fwd"],
+        ),
+        _kernel_entry(
+            "attention_wide_bwd (K6/K8 at other shapes, f32 and bf16)", src + "attention_wide.cu",
+            "ai_font_renderer_tpu/ops/fused_attention.py:122", wide_bwd_rows,
+            f"B=1024,S=100,E=64,H=4,float32,dropout={DROPOUT}", launches["attention_wide_bwd"],
         ),
         _kernel_entry(
             "fused_output_dx", src + "fused_output.cu",

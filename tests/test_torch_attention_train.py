@@ -39,6 +39,7 @@ from ai_font_renderer_tpu_torch.ops import (
     fused_attention_reference,
     fused_dw_adamw_xt,
 )
+from ai_font_renderer_tpu_torch.ops.fused_attention import kernel_takes
 from ai_font_renderer_tpu_torch.ops import philox
 from ai_font_renderer_tpu_torch.train import step as tstep
 
@@ -477,6 +478,116 @@ def test_training_forward_draws_its_seed_from_the_generator(flag):
     assert torch.equal(gen.get_state(), replay.get_state())
     x = tfr.features(params, codes, tm, train=True, generator=torch.Generator().manual_seed(9))
     assert x.shape == (4, 24, 64) and 0 <= int(seed) < 2**31
+
+
+# --- the register-tiled kernels where they take the shape, the general ones elsewhere ---
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,taken",
+    [
+        ((100, 32, 4), F32, True),  # the model's shape
+        ((100, 32, 4), BF16, True),
+        ((1, 32, 4), F32, True),  # a single key
+        ((128, 32, 4), F32, True),  # the f32 kernels' longest S
+        ((129, 32, 4), F32, False),
+        ((112, 32, 4), BF16, True),  # the bf16 kernels' longest S
+        ((113, 32, 4), BF16, False),
+        ((113, 32, 4), F32, True),
+        ((100, 64, 4), F32, False),  # E above 32
+        ((100, 64, 8), BF16, False),
+        ((100, 32, 1), F32, True),  # head widths 32, 16 and 8
+        ((100, 32, 2), BF16, True),
+        ((100, 24, 3), F32, True),
+        ((100, 32, 8), F32, False),  # head width 4
+        ((100, 30, 4), F32, False),  # E not a multiple of H
+        ((0, 32, 4), F32, False),
+        ((100, 32, 4), torch.float16, False),
+    ],
+)
+def test_kernel_takes_states_the_kernels_rules(shape, dtype, taken):
+    """The predicate the entry points dispatch on: head width 8, 16 or 32
+    and E <= 32; S <= 128 in f32, S <= 112 in bf16; no other dtype. Where
+    it is false, the general kernels run. tests/test_torch_cuda.py holds it
+    equal to the libraries' own rules."""
+    S, E, heads = shape
+    assert kernel_takes(S, E, heads, dtype) is taken
+
+
+# (B, S, E, H) beyond the register-tiled kernels: S = 129, E = 64 and a
+# head width of 4, which the JAX kernels take as they take any other.
+WIDE_SHAPES = {"S129": (2, 129, 32, 4), "E64": (2, 20, 64, 4), "d4": (2, 9, 32, 8)}
+
+
+@pytest.mark.parametrize("entry", ["v1", "v2"])
+@pytest.mark.parametrize("shape", list(WIDE_SHAPES.values()), ids=list(WIDE_SHAPES))
+def test_entries_beyond_the_register_tiled_shapes_match_jax_grad(entry, shape):
+    """At the shapes the general kernels serve, the entry points (their
+    plain versions on the CPU) against the JAX fused_attention /
+    fused_attention2 (the Pallas kernels in interpret mode, one tile of the
+    whole batch) at rate 0, f32: the output to 2e-5, and the gradients
+    with the tolerances of test_gradients_at_rate_0_match_jax_grad."""
+    bsz, s, e, heads = shape
+    x, w, r = _inputs(bsz, s, e=e)
+
+    def run(x, w):
+        if entry == "v1":
+            return jax_fa(heads, 0.0, bsz, True, x, w, jnp.int32(0))
+        return jax_fa2(heads, 0.0, bsz, bsz, True, x, w, jnp.int32(0))
+
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    jout = run(jnp.asarray(x), jw)
+    jdx, jdw = jax.grad(lambda x, w: jnp.sum(run(x, w) * r), argnums=(0, 1))(jnp.asarray(x), jw)
+    tx, tw = _torch(x, w, torch.float32, grad=True)
+    out = (fused_attention if entry == "v1" else fused_attention2)(tx, tw, heads)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=2e-5)
+    got = torch.autograd.grad((out * torch.from_numpy(r)).sum(), [tx, *(tw[k] for k in KEYS)])
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jdx), rtol=1e-3, atol=2e-4)
+    gmax = max(float(np.abs(jdw[k]).max()) for k in KEYS)
+    for k, g in zip(KEYS, got[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jdw[k]), rtol=2e-3, atol=2e-4 * gmax, err_msg=k)
+
+
+def _entry_spy(monkeypatch):
+    calls = []
+    for name in ("fused_attention", "fused_attention2"):
+        entry = getattr(tfr, name)
+        monkeypatch.setattr(tfr, name, lambda *a, _e=entry, _n=name, **kw: calls.append(_n) or _e(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("flag", list(FLAGS))
+@pytest.mark.parametrize(
+    "kw",
+    [dict(), dict(embedding_dim=64), dict(max_length=129, hidden_dim=8),
+     dict(max_length=113, bf16_frontend=True), dict(max_length=112, bf16_frontend=True)],
+    ids=["model_shape", "E64", "S129", "S113_bf16", "S112_bf16"],
+)
+def test_features_takes_the_kernel_entry_at_every_shape(flag, kw, monkeypatch):
+    """With a fused attention flag, ``features`` calls the kernel entry at
+    every shape, as the JAX model calls its Pallas kernel whatever E and S
+    are (the entry picks the register-tiled or the general kernels on the
+    card); its features at eval equal those of the plain attention within
+    the rounding of x's type (2e-5 in f32; bf16 rounds the projections
+    once, the model's attention twice), and a training step runs."""
+    tm = tcfg.ModelConfig(**{**SMALL, **FLAGS[flag], **kw})
+    plain_cfg = tcfg.ModelConfig(**{**SMALL, **kw})
+    calls = _entry_spy(monkeypatch)
+    params = tfr.init(torch.Generator().manual_seed(0), tm, "cpu")
+    codes = torch.from_numpy(_codes(4, tm.max_length, seed=8))
+    with torch.no_grad():
+        x = tfr.features(params, codes, tm)
+        want = tfr.features(params, codes, plain_cfg)
+    atol = 0.05 if tm.bf16_frontend else 2e-5
+    torch.testing.assert_close(x.float(), want.float(), atol=atol, rtol=0)
+    tt = tcfg.TrainConfig(batch_size=4)
+    targets = torch.rand(4, tm.sheet_height, tm.sheet_width, generator=torch.Generator().manual_seed(1))
+    _, loss = tstep.train_step(tstep.state_from_params(params, tt), codes, targets, 1e-3,
+                               torch.Generator().manual_seed(2), tm, tt)
+    assert bool(torch.isfinite(loss))
+    assert len(calls) == 2, calls
 
 
 # --- K9 ---------------------------------------------------------------------

@@ -51,17 +51,39 @@ def test_training_and_missing_weights_exit_1(argv, capsys):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--int8"], ["--truth"], ["--implicit", "b.npz"], ["--placement", "p.npz"], ["--exported", "a.hlo"]],
+    [["--int8"], ["--implicit", "b.npz"], ["--placement", "p.npz"], ["--exported", "a.hlo"]],
 )
 def test_later_slice_flags_exit_1(weights, extra, tmp_path, capsys):
     rc = cli.main(["render", "HI", "--weights", weights, "--out", str(tmp_path), "--device", "cpu", *extra])
     assert rc == 1
-    assert "not ported" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "not ported" in out and "item " in out
     assert not os.path.exists(tmp_path / "string_0.bmp")
 
 
+@pytest.mark.parametrize("hinted", [False, True], ids=["unhinted", "hinted"])
+def test_render_truth_writes_the_shaped_ground_truth(hinted, tmp_path, capsys):
+    """render --truth: the 15 test strings' shaped ground truth as BMPs,
+    byte-equal to the JAX package's ShapedRenderer sheets through its BMP
+    encoder; no weights are read and no card is needed."""
+    from ai_font_renderer_tpu.fontgen.bmp import encode_bmp
+    from ai_font_renderer_tpu.fontgen.shaped import ShapedRenderer
+
+    from ai_font_renderer_tpu_torch.config import MONTSERRAT_PATH
+
+    argv = ["render", "--truth", "--font", MONTSERRAT_PATH, "--out", str(tmp_path), "--weights", "/none.npz"]
+    assert cli.main(argv + (["--hinted"] if hinted else [])) == 0
+    assert f"Saved 15 shaped ground-truth strings to {tmp_path}/" in capsys.readouterr().out
+    want = ShapedRenderer(MONTSERRAT_PATH, hinted=hinted).render_batch(cli.TEST_STRINGS)
+    assert sorted(os.listdir(tmp_path)) == sorted(f"string_{i}.bmp" for i in range(15))
+    for i, sheet in enumerate(want):
+        assert (tmp_path / f"string_{i}.bmp").read_bytes() == encode_bmp(sheet), i
+
+
 def test_other_subcommands_and_serve_flags_exit_1(weights, capsys):
-    assert cli.main(["fontgen"]) == 1
+    assert cli.main(["export"]) == 1
+    assert cli.main(["train-placement"]) == 1
+    assert "item 14" in capsys.readouterr().out
     assert cli.main(["serve", "--weights", weights, "--int8", "--device", "cpu"]) == 1
     assert cli.main(["serve", "--weights", weights, "--tcp", "nope", "--device", "cpu"]) == 1
     assert "HOST:PORT" in capsys.readouterr().out
@@ -223,13 +245,6 @@ def test_later_slice_training_flags_exit_1(monkeypatch, tmp_path, capsys, argv, 
     assert not os.path.exists(tmp_path / "o")
 
 
-def test_proportional_font_exits_1(tmp_path, capsys):
-    from ai_font_renderer_tpu_torch.config import MONTSERRAT_PATH
-
-    assert cli.main(["--train", "--font", MONTSERRAT_PATH, "--output", str(tmp_path / "o"), "--device", "cpu"]) == 1
-    assert "item 7" in capsys.readouterr().out
-
-
 @pytest.fixture
 def tiny_model(monkeypatch):
     """The CLI's configs with the model narrowed to a CPU test size."""
@@ -264,6 +279,31 @@ def test_tiny_train_on_cpu_writes_weights_and_bmps(tiny_model, tmp_path, monkeyp
     params, mcfg = load_params_with_config(str(tmp_path / "font_renderer.npz"), device="cpu")
     assert (mcfg.max_length, mcfg.hidden_dim, mcfg.sheet_width) == (16, 16, 24)
     assert params["out_w"].shape == (256, 384)
+
+
+def test_proportional_font_trains_on_cpu(tiny_model, tmp_path, monkeypatch):
+    """A proportional font (Montserrat) used to be refused with exit 1;
+    --train --font Montserrat now trains on the CPU
+    (narrowed model) on the proportional corpus, and writes the weights and
+    15 BMPs."""
+    from ai_font_renderer_tpu_torch.config import MONTSERRAT_PATH
+
+    seen = {}
+    build = cli._build_dataset
+
+    def spy(*args, **kw):
+        seen["atlas"], seen["ds"] = build(*args, **kw)
+        return seen["atlas"], seen["ds"]
+
+    monkeypatch.setattr(cli, "_build_dataset", spy)
+    monkeypatch.chdir(tmp_path)
+    out = str(tmp_path / "run")
+    rc = cli.main(["--train", "--font", MONTSERRAT_PATH, "--device", "cpu", "--samples", "48", "--epochs", "1",
+                   "--batch-size", "16", "--output", out])
+    assert rc == 0
+    assert type(seen["atlas"]).__name__ == "PropAtlas" and seen["ds"].targets_u8.shape == (48, 16, 24)
+    assert os.path.exists(tmp_path / "font_renderer.npz")
+    assert {f"string_{i}.bmp" for i in range(15)} <= set(os.listdir(out))
 
 
 def test_bare_run_without_weights_trains(tiny_model, tmp_path, capsys):

@@ -15,6 +15,8 @@ from ai_font_renderer_tpu_torch.ops.philox import dropout_keep
 from ai_font_renderer_tpu_torch.ops import (
     attention_mma_bwd,
     attention_mma_fwd,
+    attention_wide_bwd,
+    attention_wide_fwd,
     bf16_shadow,
     fused_attention,
     fused_attention2,
@@ -113,7 +115,7 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="shape mismatch"):
         fused_output(x, w[:4], b)
     ax, aw = _attn_inputs(2, 8, 32, cuda, torch.float32)
-    with pytest.raises(ValueError, match="divide 32"):
+    with pytest.raises(ValueError, match="multiple of the 5 heads"):
         fused_attention(ax, aw, 5)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fused_attention(ax.half(), aw, 4)
@@ -785,19 +787,25 @@ def test_f32_attention_kernels_at_the_layouts_edges(cuda, rate, bsz, s, e, heads
         assert torch.equal(k6[0], other[0]) and all(torch.equal(k6[1][k], other[1][k]) for k in KEYS)
 
 
+def _wide_counts():
+    return attention_wide_fwd.launches, attention_wide_bwd.launches
+
+
 def test_f32_attention_refuses_what_it_cannot_take(cuda):
     """The f32 kernels' limits, each named by the error: a lane per 4 keys
     (S <= 128), a lane per output column (E <= 32), head widths 8, 16 and
-    32."""
-    x, w = _attn_inputs(1, 129, 32, cuda, torch.float32)
-    with pytest.raises(ValueError, match="S <= 128"):
-        fused_attention(x, w, 4)
-    x, w = _attn_inputs(1, 8, 64, cuda, torch.float32)
-    with pytest.raises(ValueError, match="E <= 32"):
-        fused_attention2(x, w, 4)
-    x, w = _attn_inputs(1, 8, 32, cuda, torch.float32)
-    with pytest.raises(ValueError, match="head width"):
-        fused_attention(x, w, 8)  # d = 4
+    32. The entry points take those shapes through the general kernels."""
+    from ai_font_renderer_tpu_torch.ops.fused_attention import _check_f32
+
+    for (s, e, heads), match in (((129, 32, 4), "S <= 128"), ((8, 64, 4), "E <= 32"),
+                                 ((8, 32, 8), "head width")):  # d = 4
+        x, w = _attn_inputs(1, s, e, cuda, torch.float32)
+        with pytest.raises(ValueError, match=match):
+            _check_f32(x, heads, backward=False)
+        before = _wide_counts()
+        fused_attention(x, w, heads)
+        fused_attention2(x, w, heads)
+        assert _wide_counts() == (before[0] + 2, before[1])
 
 
 def test_tensor_core_attention_refuses_what_it_cannot_take(cuda):
@@ -808,7 +816,10 @@ def test_tensor_core_attention_refuses_what_it_cannot_take(cuda):
         attention_mma_fwd(x, w, 8)  # d = 4
     long_x, _ = _attn_inputs(1, 113, 32, cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="S <= 112"):
-        fused_attention2(long_x, w, 4)
+        attention_mma_fwd(long_x, w, 4)
+    before = _wide_counts()
+    fused_attention2(long_x, w, 4)
+    assert _wide_counts() == (before[0] + 1, before[1])
 
 
 @pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["mu_f32", "mu_bf16"])
@@ -866,3 +877,171 @@ def test_train_step_through_attention_kernels_matches_plain_step(cuda, stored):
     scale = max(float(plain.mu[k].abs().max()) for k in KEYS)
     for k in KEYS:
         assert float((kern.mu[k] - plain.mu[k]).abs().max()) <= 1e-3 * scale, k
+
+
+# --- the general kernels, at the shapes the register-tiled ones do not take ---
+
+# (B, S, E, H): S past both register-tiled kernels, E = 64, head width 4,
+# head width 12 with an odd S, one head of 64, and the model's shape (which
+# the entries send to the register-tiled kernels; the general wrappers take
+# it too).
+WIDE_SHAPES = [(2, 129, 32, 4), (3, 100, 64, 4), (2, 37, 32, 8), (3, 61, 36, 3), (1, 300, 64, 1),
+               (4, 100, 32, 4)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bsz,s,e,heads", WIDE_SHAPES)
+def test_general_attention_kernels_match_plain(cuda, rate, dtype, bsz, s, e, heads):
+    """The general forward and backward against the plain versions fed the
+    plain mask (forward: 1e-4 in f32; in bf16 2e-2 of the largest |plain|
+    value, since q, k, v and out round once here and twice in the plain
+    version, and at S = 300, E = 64 an output of 2.25 lies 4 bf16 steps
+    away; backward: BWD_TOL); the stored
+    mask equals the plain mask byte for byte; the mask drawn and the mask
+    stored give the same bits, forward and backward, and so does a second
+    run; each call launches its kernel once."""
+    x, w = _attn_inputs(bsz, s, e, cuda, dtype, seed=s + e)
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda).to(dtype)
+    seed = _seed(cuda)
+    want_mask = dropout_keep(seed, (bsz, heads, s, s), rate).to(torch.uint8) if rate else None
+    before = _wide_counts()
+    out1, _ = attention_wide_fwd(x, w, heads, rate, seed)
+    out2, mask = attention_wide_fwd(x, w, heads, rate, seed, store_mask=True)
+    assert torch.equal(out1, out2) and out1.dtype == dtype
+    assert torch.equal(mask, want_mask) if rate else mask is None
+    want = fused_attention_reference(x, w, heads, mask=want_mask, rate=rate)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2 * float(want.float().abs().max())
+    torch.testing.assert_close(out1.float(), want.float(), atol=atol, rtol=0)
+    k6 = attention_wide_bwd(x, g, w, heads, rate, seed)
+    k8 = attention_wide_bwd(x, g, w, heads, rate, None, want_mask)
+    again = attention_wide_bwd(x, g, w, heads, rate, seed)
+    assert _wide_counts() == (before[0] + 2, before[1] + 3)
+    _assert_grads_close(k6, fused_attention_backward_reference(x, g, w, heads, rate, want_mask), BWD_TOL[dtype])
+    for other in (k8, again):
+        assert torch.equal(k6[0], other[0]) and all(torch.equal(k6[1][k], other[1][k]) for k in KEYS)
+
+
+@pytest.mark.parametrize("stored", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_entries_take_the_general_kernels_at_E64_through_autograd(cuda, stored, dtype):
+    """At E = 64 an entry point's forward and backward under autograd
+    launch the general kernels once each, and their gradients equal the
+    general backward's."""
+    x, w = _attn_inputs(3, 100, 64, cuda, dtype)
+    seed = _seed(cuda)
+    entry = fused_attention2 if stored else fused_attention
+    before = _wide_counts()
+    xg = x.clone().requires_grad_()
+    wg = {k: v.clone().requires_grad_() for k, v in w.items()}
+    entry(xg, wg, 4, 0.2, seed).float().sum().backward()
+    assert _wide_counts() == (before[0] + 1, before[1] + 1)
+    dx, dw = attention_wide_bwd(x, torch.ones_like(x), w, 4, 0.2, seed)
+    assert torch.equal(xg.grad, dx) and all(torch.equal(wg[k].grad, dw[k]) for k in KEYS)
+
+
+@pytest.mark.parametrize("flag", ["fused_attention", "fused_attention_v2"])
+@pytest.mark.parametrize(
+    "kw,taken",
+    [(dict(embedding_dim=64), False), (dict(max_length=129, hidden_dim=8), False),
+     (dict(max_length=113, hidden_dim=8, bf16_frontend=True), False), (dict(), True)],
+    ids=["E64", "S129", "S113_bf16", "model_width"],
+)
+def test_train_step_with_a_fused_attention_flag_at_any_shape(cuda, flag, kw, taken):
+    """A training step with either fused attention flag at E = 64, S = 129
+    and S = 113 in bf16, shapes the register-tiled kernels do not take:
+    the entry points launch the general kernels, as the TPU kernels take
+    any E and S, and the step runs (it raised before). At a shape the
+    register-tiled kernels take, they launch and the general ones do not."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+
+    mcfg = ModelConfig(**{"max_length": 24, "hidden_dim": 16, "sheet_height": 20, "sheet_width": 60,
+                          flag: True, **kw})
+    params = font_renderer.init(torch.Generator(device=cuda).manual_seed(0), mcfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    codes = torch.randint(32, 127, (16, mcfg.max_length), generator=gen, device=cuda, dtype=torch.int32)
+    targets = torch.rand(16, 20, 60, generator=gen, device=cuda)
+    tcfg = TrainConfig(batch_size=16)
+    fwd = fused_attention2 if flag == "fused_attention_v2" else fused_attention
+    bwd = fused_attention2_backward if flag == "fused_attention_v2" else fused_attention_backward
+    before = (fwd.launches, bwd.launches, *_wide_counts())
+    _, loss = train_step(state_from_params(params, tcfg), codes, targets, 1e-3, gen, mcfg, tcfg)
+    assert bool(torch.isfinite(loss))
+    wide = 0 if taken else 1
+    assert (fwd.launches, bwd.launches, *_wide_counts()) == (
+        before[0] + 1, before[1] + 1, before[2] + wide, before[3] + wide)
+
+
+def test_kernel_takes_equals_the_libraries_rules(cuda):
+    """The Python predicate the entry points dispatch on against the
+    libraries' own rules, afr_fused_attention_shape_ok (f32) and
+    afr_attention_mma_shape_ok (bf16), over a grid of (S, E, H); the
+    general kernels take every shape of the grid."""
+    from ai_font_renderer_tpu_torch.ops import _build
+    from ai_font_renderer_tpu_torch.ops.fused_attention import (
+        _MMA_SIGNATURES,
+        _SIGNATURES,
+        _WIDE_SIGNATURES,
+        kernel_takes,
+    )
+
+    f32 = _build.load("fused_attention", _SIGNATURES)
+    mma = _build.load("attention_mma", _MMA_SIGNATURES)
+    wide = _build.load("attention_wide", _WIDE_SIGNATURES)
+    checked = 0
+    for S in (1, 7, 64, 100, 111, 112, 113, 127, 128, 129, 200):
+        for E in (8, 16, 24, 30, 32, 40, 64):
+            for H in (1, 2, 3, 4, 8):
+                assert kernel_takes(S, E, H, torch.float32) is bool(f32.afr_fused_attention_shape_ok(S, E, H))
+                assert kernel_takes(S, E, H, torch.bfloat16) is bool(mma.afr_attention_mma_shape_ok(S, E, H))
+                assert bool(wide.afr_attention_wide_shape_ok(S, E, H)) is (E % H == 0)
+                checked += 1
+    assert checked == 11 * 7 * 5
+
+
+# --- the data path on the card ----------------------------------------------
+
+
+def test_proportional_synthesis_on_the_card_equals_the_oracle(cuda):
+    """Montserrat at full width: 96 corpus sheets and the test strings
+    synthesized on the card (TF32 off) equal the numpy oracle in u8."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import MONTSERRAT_PATH
+    from ai_font_renderer_tpu_torch.fontgen import (
+        bake_prop_atlas,
+        encode_prop_grids,
+        generate_corpus,
+        synthesize_prop_host,
+        synthesize_prop_sheets,
+    )
+    from ai_font_renderer_tpu_torch.fontgen.dataset import build_device_dataset_prop, synthesize_ground_truth
+
+    atlas = bake_prop_atlas(MONTSERRAT_PATH)
+    texts = generate_corpus(96) + TEST_STRINGS
+    grids = encode_prop_grids(texts, atlas)
+    got = synthesize_prop_sheets(atlas, grids, device=cuda)
+    assert got.device.type == "cuda"
+    want = np.round(synthesize_prop_host(atlas, grids) * 255)
+    np.testing.assert_array_equal(np.round(got.cpu().numpy() * 255), want)
+    ds = build_device_dataset_prop(atlas, 96, synth_batch=64, device=cuda)
+    np.testing.assert_array_equal(ds.targets_u8.cpu().numpy(), want[:96].astype(np.uint8))
+    truth = synthesize_ground_truth(atlas, TEST_STRINGS, on_device=True, synth_batch=8, device=cuda)
+    np.testing.assert_array_equal(np.round(truth * 255), want[96:])
+
+
+def test_device_dataset_from_disk_onto_the_card(cuda, tmp_path):
+    """fontgen on the card, read back onto the card: codes and u8 targets
+    equal the device dataset's."""
+    from ai_font_renderer_tpu_torch import cli
+    from ai_font_renderer_tpu_torch.config import FIRACODE_PATH
+    from ai_font_renderer_tpu_torch.fontgen import bake_atlas, build_device_dataset
+    from ai_font_renderer_tpu_torch.fontgen.dataset import device_dataset_from_disk
+
+    out = str(tmp_path / "train_input")
+    assert cli.main(["fontgen", "--num-samples", "40", "--out", out]) == 0
+    disk = device_dataset_from_disk(out, 40, device=cuda)
+    built = build_device_dataset(bake_atlas(FIRACODE_PATH), 40, device=cuda)
+    assert disk.targets_u8.device.type == "cuda" and disk.codes.device.type == "cuda"
+    assert torch.equal(disk.targets_u8, built.targets_u8) and torch.equal(disk.codes, built.codes)

@@ -195,11 +195,17 @@ def test_val_batches_equal(n, batch):
 
 
 def test_font_is_monospace_and_proportional_refusal():
+    """Kept under its old name: a proportional font used to be refused; now
+    the font kind picks the atlas (bake_font_atlas), as in the JAX
+    package."""
     assert tds.font_is_monospace(T_FIRACODE) == jds.font_is_monospace(FIRACODE_PATH) is True
     assert tds.font_is_monospace(MONTSERRAT_PATH) == jds.font_is_monospace(MONTSERRAT_PATH) is False
-    tds.require_monospace(T_FIRACODE)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tds.require_monospace(MONTSERRAT_PATH)
+    for font, kind in ((T_FIRACODE, "GlyphAtlas"), (MONTSERRAT_PATH, "PropAtlas")):
+        assert type(tds.bake_font_atlas(font, proportional=not tds.font_is_monospace(font))).__name__ == kind
+    np.testing.assert_array_equal(
+        tds.bake_font_atlas(MONTSERRAT_PATH, proportional=True).table,
+        jds.bake_font_atlas(MONTSERRAT_PATH, proportional=True).table,
+    )
 
 
 def test_wrap_and_layout_equal_jax(jax_cache):

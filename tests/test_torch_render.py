@@ -78,11 +78,21 @@ def test_npz_without_config_infers_it(jax_pair, tmp_path):
     assert none is None and params_only.keys() == got.keys()
 
 
-def test_pth_waits_for_a_later_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tckpt.save_params({"a": torch.zeros(1)}, str(tmp_path / "w.pth"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tckpt.load_params_with_config(str(tmp_path / "w.pth"), device="cpu")
+def test_pth_round_trips_through_save_and_load(tmp_path):
+    """A .pth used to be refused. save_params and
+    load_params_with_config now dispatch on the name to the reference's
+    state_dict (tests/test_torch_data_cli.py holds it against the JAX
+    package's): the arrays come back equal and the config from the shapes;
+    a dict without the linear decoder has no state_dict."""
+    cfg = ModelConfig(max_length=16, hidden_dim=16)
+    params = tfr.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    path = str(tmp_path / "w.pth")
+    tckpt.save_params(params, path, cfg)
+    got, mcfg = tckpt.load_params_with_config(path, device="cpu")
+    assert sorted(got) == sorted(params) and all(torch.equal(got[k], params[k]) for k in params)
+    assert (mcfg.max_length, mcfg.hidden_dim, mcfg.sheet_width) == (16, 16, 240)
+    with pytest.raises(ValueError, match="linear-decoder"):
+        tckpt.save_params({"a": torch.zeros(1)}, str(tmp_path / "conv.pth"))
 
 
 @pytest.fixture(scope="module")
