@@ -6,13 +6,16 @@ evaluate weights.
                      under ``train_output_<timestamp>/`` (``--output``);
                      ``--font`` picks the corpus' font, monospace
                      (FiraCode) or proportional (Montserrat);
+                     ``--decoder`` the sheet decoder, linear (default),
+                     conv or conv_ps (``--decoder-channels``);
   * no arguments     load saved weights if present, else train and save;
                      then render the test strings;
   * ``render``       render given strings (or the test strings) to BMPs,
-                     from ``.npz`` or ``.pth`` weights; ``--truth`` draws
-                     the shaped ground truth (GSUB + GPOS, ``--hinted``
-                     grid-fitted) with no model;
-  * ``serve``        run the batched render server;
+                     from ``.npz`` or ``.pth`` weights (``--int8``: the
+                     projection in int8); ``--truth`` draws the shaped
+                     ground truth (GSUB + GPOS, ``--hinted`` grid-fitted)
+                     with no model;
+  * ``serve``        run the batched render server (``--int8`` as render);
   * ``fontgen``      write the dataset in the reference's file format:
                      ``data.txt``, ``1.bmp``..``N.bmp`` and
                      ``dataset_metadata.txt``;
@@ -23,9 +26,10 @@ evaluate weights.
 Everything runs on the card unless ``--device cpu`` is given. ``--kernels``
 picks the training configuration: ``none`` (the JAX package's defaults, no
 kernel), ``output`` (``use_pallas_output``: K1 forward, K2/K3 backward) or
-``fused`` (``use_pallas_output`` + ``fused_dw_adamw``: K1, K2 and K4).
-Options that need other slices of the port exit 1 with a message that says
-so.
+``fused`` (``use_pallas_output`` + ``fused_dw_adamw``: K1, K2 and K4); the
+last two are kernels of the linear decoder's projection and exit 1 with a
+conv decoder. Options that need other slices of the port exit 1 with a
+message that says so.
 """
 
 from __future__ import annotations
@@ -63,7 +67,6 @@ _LATER = (
 )
 # The ROADMAP item that brings each refused option or subcommand.
 _ITEM = {
-    "--int8": "9",
     "--implicit": "12",
     "--placement": "13",
     "--exported": "16",
@@ -162,12 +165,20 @@ def cmd_render(args) -> int:
             write_bmp(os.path.join(args.out, f"string_{i}.bmp"), sheet)
         print(f"Saved {len(sheets)} shaped ground-truth strings to {args.out}/")
         return 0
-    if _refuse_later(args, ("--int8", "--implicit", "--placement", "--exported")):
+    if _refuse_later(args, ("--implicit", "--placement", "--exported")):
         return 1
     loaded = _load(args)
     if loaded is None:
         return 1
     params, mcfg = loaded
+    if args.int8:
+        from .ops.quantized import quantize_params
+
+        try:
+            params = quantize_params(params)
+        except ValueError as e:
+            print(f"Error: {e}")
+            return 1
     render_strings(params, args.strings or TEST_STRINGS, args.out, mcfg)
     return 0
 
@@ -178,7 +189,7 @@ def cmd_serve(args) -> int:
 
     from .render.server import RenderServer
 
-    if _refuse_later(args, ("--int8", "--exported")):
+    if _refuse_later(args, ("--exported",)):
         return 1
     tcp = None
     if args.tcp:
@@ -190,16 +201,21 @@ def cmd_serve(args) -> int:
     if loaded is None:
         return 1
     params, mcfg = loaded
-    server = RenderServer(
-        params,
-        mcfg,
-        socket_path=args.socket,
-        batch_size=args.batch_size,
-        auth_token=args.auth_token or os.environ.get("AFR_AUTH_TOKEN"),
-        tcp=tcp,
-        tls_cert=args.tls_cert,
-        tls_key=args.tls_key,
-    )
+    try:
+        server = RenderServer(
+            params,
+            mcfg,
+            socket_path=args.socket,
+            batch_size=args.batch_size,
+            int8=args.int8,
+            auth_token=args.auth_token or os.environ.get("AFR_AUTH_TOKEN"),
+            tcp=tcp,
+            tls_cert=args.tls_cert,
+            tls_key=args.tls_key,
+        )
+    except ValueError as e:
+        print(f"Error: {e}")
+        return 1
     server.start()
     where = (
         f"{server.address[0]}:{server.address[1]}" + (" (TLS)" if args.tls_cert else "")
@@ -377,7 +393,9 @@ def _subcommands(argv: list[str]) -> int:
     p_ren.add_argument("--implicit", default=None, help="not ported yet")
     p_ren.add_argument("--placement", default=None, help="not ported yet")
     for p in (p_ren, p_srv):
-        p.add_argument("--int8", action="store_true", help="not ported yet")
+        p.add_argument("--int8", action="store_true",
+                       help="the linear head as an int8 x int8 product (per-channel weight scales, "
+                       "dynamic per-row activation scales)")
         p.add_argument("--exported", default=None, help="not ported yet")
     for p in (p_ren, p_srv, p_gen, p_ev):
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -429,10 +447,12 @@ def _train_parser() -> argparse.ArgumentParser:
                         help="none = plain PyTorch (default); output = K1/K2/K3 for the output "
                         "projection; fused = K1/K2 plus the fused dW+AdamW kernel K4")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # Options of later slices: accepted so that they fail with a clear message.
     parser.add_argument("--decoder", choices=["linear", "conv", "conv_ps"], default=None,
-                        help="only linear is ported")
-    parser.add_argument("--decoder-channels", default=None, help="not ported yet")
+                        help="sheet decoder: linear (the reference's 6400x19200 head), conv "
+                        "(resize + conv pyramid) or conv_ps (pixel-shuffle conv pyramid)")
+    parser.add_argument("--decoder-channels", default=None,
+                        help="comma-separated conv decoder channels, e.g. 128,128,64,32,16")
+    # Options of later slices: accepted so that they fail with a clear message.
     parser.add_argument("--mesh", default=None, metavar="DATA,MODEL", help="only 1,1 is ported")
     return parser
 
@@ -443,9 +463,17 @@ def _configs(args):
     from .config import ModelConfig, TrainConfig
 
     mcfg, tcfg = ModelConfig(), TrainConfig()
+    decoder = args.decoder or mcfg.decoder
+    if decoder != "linear" and args.kernels != "none":
+        raise ValueError(
+            f"--kernels {args.kernels}: the output-projection kernels need the linear "
+            f"decoder; --decoder {decoder} has no output projection (use --kernels none)"
+        )
     if args.profile == "fast":
         mcfg = replace(mcfg, bf16_frontend=True, bits_dropout=True)
-        if not (args.leaky_clamp or 0.0) and args.kernels == "none":
+        # The hand-rolled backward exists only for the linear decoder; the
+        # conv decoders keep the other fast flags.
+        if decoder == "linear" and not (args.leaky_clamp or 0.0) and args.kernels == "none":
             tcfg = replace(tcfg, handrolled_bwd=True)
     mkw, tkw = _KERNELS[args.kernels]
     mcfg, tcfg = replace(mcfg, **mkw), replace(tcfg, **tkw)
@@ -461,21 +489,19 @@ def _configs(args):
         tcfg = replace(tcfg, peak_learning_rate=args.peak_lr)
     if args.lr:
         tcfg = replace(tcfg, learning_rate=args.lr)
+    if args.decoder:
+        mcfg = replace(mcfg, decoder=args.decoder)
     if args.leaky_clamp is not None:
         mcfg = replace(mcfg, leaky_clamp=args.leaky_clamp)
     if args.max_seconds is not None:
         tcfg = replace(tcfg, max_train_seconds=args.max_seconds)
+    if args.decoder_channels:
+        chans = tuple(int(c) for c in args.decoder_channels.split(","))
+        mcfg = replace(mcfg, decoder_channels=chans)
     return mcfg, tcfg
 
 
 def _refuse_later_training(args) -> bool:
-    if args.decoder not in (None, "linear") or args.decoder_channels:
-        print(
-            "--decoder conv/conv_ps: the conv decoders are not ported to the "
-            "PyTorch/CUDA package yet; they come with a later slice (ROADMAP "
-            "queue 1, item 8)."
-        )
-        return True
     if args.mesh is not None and args.mesh.replace(" ", "") != "1,1":
         print(
             f"--mesh {args.mesh}: training on a device mesh is not ported to the "

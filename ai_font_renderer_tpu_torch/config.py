@@ -89,12 +89,32 @@ class ModelConfig:
     fused_attention_v2: bool = False
     fa2_tile_fwd: int = 64
     fa2_tile_bwd: int = 32
-    # "linear" is the only decoder of this slice; "conv"/"conv_ps" raise.
+    # "linear": the 6400x19200 projection. "conv": a pyramid of nearest
+    # resize + 3x3 conv stages from a decoder_grid latent image of the slots;
+    # "conv_ps": 3x3 convs at low resolution, each followed by a pixel shuffle.
     decoder: str = "linear"
     decoder_grid: tuple[int, int] = (5, 20)
     decoder_channels: tuple[int, ...] = (128, 128, 64, 32, 16)
     bf16_cotangent: bool = False
     leaky_clamp: float = 0.0
+
+    def __post_init__(self):
+        """The decoder fields' rules, which the JAX package checks when it
+        initialises or plans a conv decoder."""
+        if self.decoder not in ("linear", "conv", "conv_ps"):
+            raise ValueError(f"decoder must be linear|conv|conv_ps, got {self.decoder!r}")
+        if self.decoder == "linear":
+            return
+        gh, gw = self.decoder_grid
+        if gh * gw != self.max_length:
+            raise ValueError(
+                f"decoder_grid {self.decoder_grid} must tile max_length={self.max_length}"
+            )
+        if self.decoder == "conv_ps" and (self.sheet_height % gh or self.sheet_width % gw):
+            raise ValueError(
+                f"decoder_grid {self.decoder_grid} must divide the sheet "
+                f"({self.sheet_height}x{self.sheet_width}) for conv_ps"
+            )
 
 
 @dataclass(frozen=True)

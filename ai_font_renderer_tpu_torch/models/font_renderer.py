@@ -1,11 +1,15 @@
 """AttentionFontRenderer in PyTorch: char codes -> pixel sheet.
 
-The port of ai_font_renderer_tpu/models/font_renderer.py, linear decoder:
+The port of ai_font_renderer_tpu/models/font_renderer.py:
 
     embed(128->32) + learned positions [100, 32]
     -> MHA(4 heads) -> residual + post-LayerNorm   (x num_blocks)
     -> ReLU(Linear 32->64) -> flatten 6400 (short sequences zero-padded)
-    -> Linear 6400->19200 -> reshape [80, 240] -> clamp(0, 1)
+    -> decoder -> [80, 240] -> clamp(0, 1)
+
+The decoder is ``cfg.decoder``: "linear", Linear 6400->19200 reshaped to
+the sheet; or a conv decoder (:func:`conv_decode`, "conv" or "conv_ps"),
+whose weights are shared across positions.
 
 Parameters keep the JAX package's layout at every public function: one
 flat dict with its key names, weights as [in, out], separate wq/wk/wv, so a
@@ -21,8 +25,8 @@ clamp when ``leaky_clamp`` > 0. JAX's key schedule cannot be reproduced
 here, so masks differ from the JAX package's; their distribution does
 not. With ``fused_attention`` or ``fused_attention_v2`` the attention's
 mask comes from the kernels' Philox under a seed drawn from ``generator``
-in its place in that order. The conv decoders raise
-``NotImplementedError`` and name the slice that brings them.
+in its place in that order. The conv weights are stored HWIO, as in the
+JAX package, and turned to torch's OIHW inside :func:`conv_decode`.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
@@ -40,12 +45,55 @@ from ..ops.fused_attention import KEYS as ATTN_KEYS
 from ..ops.fused_attention import fused_attention, fused_attention2, fused_attention_reference
 from ..ops.fused_output import fused_output
 
-def _conv_not_ported(cfg: ModelConfig) -> None:
-    if cfg.decoder != "linear":
-        raise NotImplementedError(
-            f"decoder={cfg.decoder!r}: the conv decoders come with a later "
-            "slice of the port (ROADMAP queue 1, item 8); only 'linear' runs"
+
+def _decoder_plan(cfg: ModelConfig) -> list[tuple[int, int, int, int]]:
+    """Conv-decoder stage plan: [(out_h, out_w, c_in, c_out), ...].
+
+    Spatial size doubles per stage from the latent grid, capped at the sheet
+    size; the final stage always lands exactly on (sheet_height, sheet_width).
+    Channels follow cfg.decoder_channels[1:].
+    """
+    gh, gw = cfg.decoder_grid
+    chans = cfg.decoder_channels
+    plan = []
+    h, w, cin = gh, gw, chans[0]
+    n = len(chans) - 1
+    for i, cout in enumerate(chans[1:]):
+        h = cfg.sheet_height if i == n - 1 else min(h * 2, cfg.sheet_height)
+        w = cfg.sheet_width if i == n - 1 else min(w * 2, cfg.sheet_width)
+        plan.append((h, w, cin, cout))
+        cin = cout
+    return plan
+
+
+def _ps_factors(ratio: int, n: int) -> list[int]:
+    """Split an integer upsampling ratio into n per-stage integer factors
+    (2s first, any odd remainder in the last stage); product == ratio."""
+    fs = []
+    r = ratio
+    for _ in range(n - 1):
+        f = 2 if (r % 2 == 0 and r > 1) else 1
+        fs.append(f)
+        r //= f
+    fs.append(r)
+    return fs
+
+
+def _decoder_plan_ps(cfg: ModelConfig) -> list[tuple[int, int, int, int]]:
+    """Pixel-shuffle decoder plan: [(fy, fx, c_in, c_out), ...]. Each stage
+    convolves at the current (low) resolution with c_out * fy * fx output
+    channels, then depth-to-space upsamples by (fy, fx)."""
+    gh, gw = cfg.decoder_grid
+    if cfg.sheet_height % gh or cfg.sheet_width % gw:
+        raise ValueError(
+            f"decoder_grid {cfg.decoder_grid} must divide the sheet "
+            f"({cfg.sheet_height}x{cfg.sheet_width}) for conv_ps"
         )
+    chans = cfg.decoder_channels
+    n = len(chans) - 1
+    fys = _ps_factors(cfg.sheet_height // gh, n)
+    fxs = _ps_factors(cfg.sheet_width // gw, n)
+    return [(fys[i], fxs[i], chans[i], chans[i + 1]) for i in range(n)]
 
 
 def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -65,10 +113,11 @@ def init(
     """Initialise parameters with the JAX package's distributions (torch's
     module defaults): N(0,1) embedding, N(0, pos_init_std) positions,
     xavier-uniform q/k/v, U(+-1/sqrt(fan_in)) for the other weights, zero
-    attention biases, unit LayerNorm scale. The numbers differ from JAX's
-    threefry draws; the distributions do not. Draws run on the generator's
-    device and land on ``device``."""
-    _conv_not_ported(cfg)
+    attention biases, unit LayerNorm scale; a conv decoder's weights HWIO
+    with torch's conv bound U(+-1/sqrt(9 * c_in)) and the ink bias at 1.0
+    (white). The numbers differ from JAX's threefry draws; the
+    distributions do not. Draws run on the generator's device and land on
+    ``device``."""
     dev = resolve_device(device)
     e, h = cfg.embedding_dim, cfg.hidden_dim
     flat = cfg.max_length * h
@@ -103,8 +152,24 @@ def init(
         for b in ("bq", "bk", "bv", "bo", "ln_bias"):
             params[f"{b}_b{i}"] = zeros(e)
         params[f"ln_scale_b{i}"] = torch.ones(e, device=g.device)
-    params["out_w"] = _uniform(g, (flat, pixels), 1.0 / flat**0.5)
-    params["out_b"] = _uniform(g, (pixels,), 1.0 / flat**0.5)
+    if cfg.decoder == "linear":
+        params["out_w"] = _uniform(g, (flat, pixels), 1.0 / flat**0.5)
+        params["out_b"] = _uniform(g, (pixels,), 1.0 / flat**0.5)
+    else:
+        c0 = cfg.decoder_channels[0]
+        params["dec_in_w"] = _uniform(g, (h, c0), 1.0 / h**0.5)
+        params["dec_in_b"] = _uniform(g, (c0,), 1.0 / h**0.5)
+        if cfg.decoder == "conv":
+            stages = [(cin, cout) for _, _, cin, cout in _decoder_plan(cfg)]
+        else:  # conv_ps: the shuffle factors fold into the output channels
+            stages = [(cin, cout * fy * fx) for fy, fx, cin, cout in _decoder_plan_ps(cfg)]
+        for i, (cin, kout) in enumerate(stages):
+            bound = 1.0 / (9 * cin) ** 0.5
+            params[f"dec_w{i}"] = _uniform(g, (3, 3, cin, kout), bound)
+            params[f"dec_b{i}"] = _uniform(g, (kout,), bound)
+        clast = cfg.decoder_channels[-1]
+        params["dec_out_w"] = _uniform(g, (3, 3, clast, 1), 1.0 / (9 * clast) ** 0.5)
+        params["dec_out_b"] = torch.ones(1, device=g.device)
     return {k: v.to(dev) for k, v in params.items()}
 
 
@@ -284,7 +349,7 @@ def frontend(
     flat = features(params, codes, cfg, train=train, generator=generator).float().reshape(B, -1)
     full = cfg.max_length * cfg.hidden_dim
     if flat.shape[1] < full:
-        flat = torch.nn.functional.pad(flat, (0, full - flat.shape[1]))
+        flat = F.pad(flat, (0, full - flat.shape[1]))
     return flat
 
 
@@ -308,6 +373,64 @@ class ProjBf16Grad(torch.autograd.Function):
         return dflat, dw
 
 
+def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-1 "SAME" convolution of NHWC x with HWIO w -> NHWC.
+    x's NCHW view is channels-last in memory, as cuDNN's NHWC kernels read
+    it, and the result permutes back to NHWC without a copy."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Nearest resize of NHWC x to [h, w] with half-pixel centres, as
+    ``jax.image.resize(..., "nearest")``: torch's "nearest-exact" (its
+    "nearest" picks other source columns at ratio 1.5)."""
+    return F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="nearest-exact").permute(0, 2, 3, 1)
+
+
+def _depth_to_space(x: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+    """NHWC [B, h, w, fy*fx*c] -> [B, h*fy, w*fx, c], the channels split as
+    (fy, fx, c) with c fastest, as the JAX package's reshape and transpose
+    (F.pixel_shuffle orders them (c, fy, fx) and needs fy == fx)."""
+    B, hh, ww, k = x.shape
+    c = k // (fy * fx)
+    x = x.reshape(B, hh, ww, fy, fx, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, hh * fy, ww * fx, c)
+
+
+def conv_decode(params: Mapping[str, torch.Tensor], flat: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Position-equivariant sheet decoder: flat [B, S*h] -> [B, H, W]
+    (before the clamp).
+
+    The frontend's per-slot features are projected to decoder_channels[0]
+    and laid out as a [grid_rows, grid_cols] latent image (slot i -> cell
+    (i // cols, i % cols)). "conv" upsamples it by nearest resizes
+    (:func:`_resize`), each followed by a 3x3 conv + ReLU; "conv_ps"
+    convolves at low resolution and then moves channels to space
+    (:func:`_depth_to_space`). A final 3x3 conv paints the ink.
+    Activations are NHWC and weights HWIO, as in the JAX package. Under
+    ``bf16_matmul`` the hidden stages take bf16 operands and give bf16
+    outputs; the ink stage is f32.
+    """
+    B = flat.shape[0]
+    dt = torch.bfloat16 if cfg.bf16_matmul else torch.float32
+    gh, gw = cfg.decoder_grid
+    x = flat.reshape(B, cfg.max_length, cfg.hidden_dim).to(dt)
+    x = torch.relu(x @ params["dec_in_w"].to(dt) + params["dec_in_b"].to(dt))
+    x = x.reshape(B, gh, gw, cfg.decoder_channels[0])
+    if cfg.decoder == "conv":
+        for i, (h, w, _, _) in enumerate(_decoder_plan(cfg)):
+            x = _resize(x, h, w)
+            x = torch.relu(_conv(x, params[f"dec_w{i}"].to(dt)) + params[f"dec_b{i}"].to(dt))
+    else:
+        for i, (fy, fx, _, _) in enumerate(_decoder_plan_ps(cfg)):
+            x = torch.relu(_conv(x, params[f"dec_w{i}"].to(dt)) + params[f"dec_b{i}"].to(dt))
+            if fy > 1 or fx > 1:
+                x = _depth_to_space(x, fy, fx)
+    out = _conv(x.float(), params["dec_out_w"]) + params["dec_out_b"]
+    return out[..., 0]
+
+
 def apply(
     params: Mapping[str, torch.Tensor],
     codes: torch.Tensor,
@@ -318,10 +441,13 @@ def apply(
 ) -> torch.Tensor:
     """Forward pass: int codes [B, <=max_length] -> sheets [B, H, W] in [0, 1].
     ``train=True`` applies dropout (masks from ``generator``) and the leaky
-    clamp; gradients flow to every parameter that requires one."""
-    _conv_not_ported(cfg)
+    clamp; gradients flow to every parameter that requires one. A conv
+    decoder takes its own path before the projection's options, so
+    ``use_pallas_output`` and ``bf16_cotangent`` do not touch it."""
     B = codes.shape[0]
     flat = frontend(params, codes, cfg, train=train, generator=generator)
+    if cfg.decoder != "linear":
+        return _clamp(conv_decode(params, flat, cfg), cfg, train)
     if cfg.use_pallas_output:
         if cfg.leaky_clamp > 0.0 or cfg.bf16_cotangent:
             raise ValueError(

@@ -18,6 +18,7 @@ from ..config import ModelConfig
 from ..fontgen.bmp import write_bmp
 from ..fontgen.layout import encode_codes
 from ..models import font_renderer
+from ..ops.quantized import apply_quantized_int8
 
 
 def _codes(params, strings: list[str], mcfg: ModelConfig) -> torch.Tensor:
@@ -32,11 +33,12 @@ def _codes(params, strings: list[str], mcfg: ModelConfig) -> torch.Tensor:
 
 
 def _forward(params, codes: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
+    """Inference forward, dispatching on the weights' format: a serving
+    bundle of ``ops.quantized.quantize_params`` (``out_w_q`` and
+    ``out_w_scale`` in place of ``out_w``) runs the int8 x int8 projection,
+    anything else ``font_renderer.apply``."""
     if "out_w_q" in params:
-        raise NotImplementedError(
-            "int8 serving weights come with a later slice of the port "
-            "(ROADMAP queue 1, item 9)"
-        )
+        return apply_quantized_int8(params, codes, mcfg)
     return font_renderer.apply(params, codes, mcfg)
 
 

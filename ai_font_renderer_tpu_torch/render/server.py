@@ -95,6 +95,7 @@ class _Batcher:
         params,
         mcfg: ModelConfig,
         batch_size: int = 64,
+        int8: bool = False,
         render_fn=None,
     ):
         if render_fn is not None:
@@ -103,6 +104,10 @@ class _Batcher:
         else:
             from .render import render_batch_u8_async
 
+            if int8 and "out_w_q" not in params:
+                from ..ops.quantized import quantize_params
+
+                params = quantize_params(params)
             self._render = lambda strings: render_batch_u8_async(
                 params, strings, mcfg
             )
@@ -271,7 +276,9 @@ class RenderServer:
 
     ``render_fn`` (strings -> uint8 device tensor [n, H, W]) replaces the
     weights-based backend entirely: ``params`` may be None and ``mcfg``
-    only supplies the wire-format sheet dims."""
+    only supplies the wire-format sheet dims. ``int8`` serves the linear
+    decoder's projection in int8 (``ops.quantized``): a dict without
+    ``out_w_q`` is quantized once, here."""
 
     def __init__(
         self,
@@ -279,6 +286,7 @@ class RenderServer:
         mcfg: ModelConfig = ModelConfig(),
         socket_path: str = "/tmp/afr.sock",
         batch_size: int = 64,
+        int8: bool = False,
         auth_token: str | None = None,
         tcp: tuple[str, int] | None = None,
         tls_cert: str | None = None,
@@ -293,7 +301,7 @@ class RenderServer:
         self.tcp = tcp
         self.tls_cert, self.tls_key = tls_cert, tls_key
         self.address: tuple[str, int] | None = None
-        self.batcher = _Batcher(params, mcfg, batch_size, render_fn=render_fn)
+        self.batcher = _Batcher(params, mcfg, batch_size, int8=int8, render_fn=render_fn)
         self.mcfg = mcfg
         self.auth_token = auth_token
         self._server: socketserver.BaseServer | None = None

@@ -82,11 +82,27 @@ Phases, each of which raises on failure, each with its seconds:
    model at E = 64 and at S = 129 with each fused attention flag: two
    steps at dropout 0.2 and one without against the plain step, through
    the general attention kernels.
-7. One JSON line listing every kernel (K1-K9, the operand pass, the
+7. Decoders and int8: (a) the conv decoders' f32 forward at the default
+   plan (B = 15) on the card against the CPU, then `conv_ps` and `conv`
+   trained at full width on phase 5's corpus (3 epochs each, batch 1024)
+   through the f32 attention kernels (K5/K6), `conv_ps` also with the fast
+   profile through K7/K8 and with no kernel; steps/s beside phase 5's
+   linear `fused` and `attn_v1`; (b) the `conv_ps` npz through `render`
+   and `eval`, the test strings with K5 against the plain path, one request
+   through a RenderServer (bf16 frontend, K7) byte-equal to a direct
+   render; (c) phase 5's `fused` weights in int8: the int32 accumulators
+   at M = 15, 64 and 1024 equal to the f64 plain product, the times of the
+   product (cuBLASLt's, through torch._int_mm), the activations'
+   quantization, the epilogue and K1, the sheets within the JAX package's
+   mean bound of the default forward and each pixel within the
+   quantization's bound of exact f32 products, `render --int8`, the
+   4096-sheet atlas in int8 beside K1's, phase 4's requests on an int8
+   server byte-equal to a direct int8 render.
+8. One JSON line listing every kernel (K1-K9, the operand pass, the
    GEMMs of K2 and K3, the bf16 attention forward and backward on
    tensor cores, and the general attention forward and backward) with its
    launches on the
-   main paths (phases 3, 4, 5 and 6 and the K4/K9 A/B; counts are set to 0
+   main paths (phases 3-7 and the K4/K9 A/B; counts are set to 0
    just before each drive and read just after), its error and its times.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
@@ -1191,7 +1207,7 @@ def _render_test_strings(params, mcfg, out_dir: str, tag: str) -> None:
           f"(tol {SHEET_TOL}), BMPs within {bmp_err * 255:.2f} gray levels", flush=True)
 
 
-def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
+def phase_render(workdir: str, card: str) -> tuple[dict, dict, float]:
     from ai_font_renderer_tpu_torch.config import ModelConfig
     from ai_font_renderer_tpu_torch.models import font_renderer
     from ai_font_renderer_tpu_torch.render import render_atlas
@@ -1239,6 +1255,7 @@ def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
     gps = sorted(4096 * mcfg.max_length / t for t in runs)
     print(f"[render] atlas 4096 sheets x {mcfg.max_length} glyphs: glyphs/s runs "
           f"{gps}, median {gps[len(gps) // 2]} ({card})", flush=True)
+    atlas_gps = gps[len(gps) // 2]
     _profile_atlas(loaded, strings, mcfg)
     counts = {k: strings_counts[k] + atlas_counts[k] for k in strings_counts}
     print(f"[render] launches: test strings {strings_counts}, atlas {atlas_counts}", flush=True)
@@ -1250,7 +1267,7 @@ def phase_render(workdir: str, card: str) -> tuple[dict, dict]:
     for name in ("fused_output", "gemm_bf16_bias_clamp", "fused_attention"):
         if counts[name] <= 0:
             raise AssertionError(f"render never launched {name}: {counts}")
-    return loaded, counts
+    return loaded, counts, atlas_gps
 
 
 SERVE_REQUESTS = {
@@ -1266,8 +1283,9 @@ def _serve_config():
     return ModelConfig(use_pallas_output=True, fused_attention_v2=True, bf16_frontend=True)
 
 
-def _serve_once(params, sock: str) -> tuple[dict, dict, dict]:
-    """One server of batch 64 and the three SERVE_REQUESTS sent at once:
+def _serve_once(params, sock: str, int8: bool = False) -> tuple[dict, dict, dict]:
+    """One server of batch 64 (``int8``: serving the projection in int8)
+    and the three SERVE_REQUESTS sent at once:
     (replies, latency ms from send to last reply byte, stalls). ``stalls``
     holds what could hold back all three at once, from just before the sends
     to the last reply: the garbage collector's pauses ([generation, ms]),
@@ -1275,7 +1293,7 @@ def _serve_once(params, sock: str) -> tuple[dict, dict, dict]:
     dispatcher's render calls as [host ms since the sends, ms it took]."""
     from ai_font_renderer_tpu_torch.render.server import RenderServer, request_render
 
-    srv = RenderServer(params, _serve_config(), socket_path=sock, batch_size=64)
+    srv = RenderServer(params, _serve_config(), socket_path=sock, batch_size=64, int8=int8)
     srv.start()
     replies, latency_ms, errors, gc_ms, dispatch_ms, gc_t0 = {}, {}, [], [], [], []
     render = srv.batcher._render
@@ -1370,10 +1388,12 @@ def _steps_per_s(state, ds, batch_idx, mcfg, tcfg, steps: int = 8) -> float:
 def step_memory() -> int:
     """``--step-memory``: torch.cuda.max_memory_allocated over one
     full-width training step at batch 1024 (after a warm one) in the plain,
-    ``output`` and ``fused`` configurations, weights from a seed and a
-    random batch (no corpus), so the figure is the model, its state and the
-    step alone; then over one 1024-sheet atlas chunk rendered with K1 and
-    the attention forward (weights, W's bf16 shadow, activations)."""
+    ``output`` and ``fused`` configurations and with the ``conv_ps``
+    decoder (plain), weights from a seed and a random batch (no corpus), so
+    the figure is the model, its state and the step alone (the linear
+    model's weights stay allocated during the conv_ps step); then over one
+    1024-sheet atlas chunk rendered with K1 and the attention forward
+    (weights, W's bf16 shadow, activations)."""
     from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig, replace
     from ai_font_renderer_tpu_torch.models import font_renderer
     from ai_font_renderer_tpu_torch.render import render_atlas
@@ -1401,6 +1421,16 @@ def step_memory() -> int:
         torch.cuda.synchronize()
         peaks[name] = torch.cuda.max_memory_allocated() / 2**20
         del state
+    conv = ModelConfig(decoder="conv_ps")
+    state = state_from_params(font_renderer.init(torch.Generator(device="cuda").manual_seed(0), conv, "cuda"),
+                              TrainConfig())
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_step(state, codes, targets, 1e-3, gen, conv, TrainConfig())
+    torch.cuda.synchronize()
+    peaks["conv_ps"] = torch.cuda.max_memory_allocated() / 2**20
+    del state
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     render_atlas(params, _atlas_strings(1024, base.max_length), replace(base, fused_attention=True))
@@ -1506,9 +1536,10 @@ def _attention_step_checks(results, batch, base, fast) -> None:
             raise AssertionError(f"one step {name} vs plain: loss rel {loss_rel}, grad rel {grad_rel}")
 
 
-def phase_train(workdir: str, card: str) -> tuple[dict, dict]:
+def phase_train(workdir: str, card: str) -> tuple[dict, dict, object]:
     """Phase 5: the trainer at full width through ``train()``, in four
-    kernel configurations, then the checks around it."""
+    kernel configurations, then the checks around it -> (launches, steps/s
+    by configuration, the corpus)."""
     from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, ModelConfig, TrainConfig, replace
     from ai_font_renderer_tpu_torch.fontgen import bake_atlas, build_device_dataset, build_layouts
     from ai_font_renderer_tpu_torch.fontgen.dataset import split_sizes
@@ -1629,7 +1660,7 @@ def phase_train(workdir: str, card: str) -> tuple[dict, dict]:
             _profile_step(state, ds, batch_idx[0], mcfg, tcfg, name)
         del state
     print(f"[train] steps/s at batch 1024: {json.dumps(rates)} ({card})", flush=True)
-    return counts, rates
+    return counts, rates, ds
 
 
 def _cli(argv: list[str], tag: str) -> tuple[int, list[str]]:
@@ -1931,6 +1962,391 @@ def phase_data(workdir: str, card: str, firacode_fused: float) -> dict:
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+# Phase 7: the conv decoders and int8 serving. f32 conv decoder, card (cuDNN,
+# TF32 off) against the CPU: sums in another order; TF32 would show as about
+# 1e-3.
+CONV_FWD_TOL = 1e-5
+# int8 sheets against the model's default forward: the JAX package's own
+# bounds (tests/test_quantized.py:56-57); the mean is held to its bound,
+# the most is printed beside its own (see _int8_serving).
+INT8_MAX_TOL, INT8_MEAN_TOL = 4 / 255, 0.5 / 255
+INT8_TENSOR_OPS = 1979e12  # dense int8 tensor-core peak, the same data sheet
+
+
+def _conv_forward_check(card: str) -> None:
+    """7a: each conv decoder's f32 forward at the default plan on the 15
+    test strings, on the card against the CPU with the same parameters:
+    before the clamp and after it."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.models import font_renderer
+
+    codes = torch.from_numpy(encode_codes(TEST_STRINGS, 100))
+    for decoder in ("conv", "conv_ps"):
+        mcfg = ModelConfig(decoder=decoder, bf16_matmul=False)
+        params = font_renderer.init(torch.Generator().manual_seed(11), mcfg, "cpu")
+        dev = {k: v.cuda() for k, v in params.items()}
+        flat = font_renderer.frontend(params, codes, mcfg)
+        got = font_renderer.conv_decode(dev, flat.cuda(), mcfg).cpu()
+        err = float((got - font_renderer.conv_decode(params, flat, mcfg)).abs().max())
+        sheets = font_renderer.apply(dev, codes.cuda(), mcfg).cpu()
+        sheet_err = float((sheets - font_renderer.apply(params, codes, mcfg)).abs().max())
+        print(f"[decoders] {decoder} f32 forward, B=15, card vs CPU: before the clamp max abs err {err:.3g}, "
+              f"sheets {sheet_err:.3g} (tol {CONV_FWD_TOL}); {font_renderer.param_count(params)} parameters",
+              flush=True)
+        if not (tuple(got.shape) == (15, 80, 240) and err <= CONV_FWD_TOL and sheet_err <= CONV_FWD_TOL):
+            raise AssertionError(f"{decoder} forward on the card: err {err}, sheets {sheet_err}, {tuple(got.shape)}")
+
+
+def _train_conv(ds, workdir: str, card: str, rates: dict) -> tuple[dict, str]:
+    """7a: the conv decoders trained at full width through train() on
+    phase 5's corpus, 3 epochs each, then steps/s and a profiled step ->
+    (launches, the path of the conv_ps npz)."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig
+    from ai_font_renderer_tpu_torch.train import train
+    from ai_font_renderer_tpu_torch.train.step import state_from_params
+    from ai_font_renderer_tpu_torch.utils.checkpoint import save_params
+
+    n_samples = ds.num_samples
+    tcfg = TrainConfig(num_epochs=3, num_samples=n_samples, checkpoint_every=0)
+    v1 = ("fused_attention", "fused_attention_backward")
+    configs = {
+        "conv_ps_attn_v1": (ModelConfig(decoder="conv_ps", fused_attention=True), v1),
+        "conv_ps_attn_v2_fast": (ModelConfig(decoder="conv_ps", bf16_frontend=True, bits_dropout=True,
+                                             fused_attention_v2=True),
+                                 ("fused_attention2", "fused_attention2_backward", "attention_mma_fwd",
+                                  "attention_mma_bwd")),
+        "conv_attn_v1": (ModelConfig(decoder="conv", fused_attention=True), v1),
+        "conv_ps_plain": (ModelConfig(decoder="conv_ps"), ()),
+    }
+    counts = {k: 0 for k in _counts()}
+    results = {}
+    for name, (mcfg, kernels) in configs.items():
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = train(ds, mcfg, tcfg, log=lambda msg, name=name: print(f"[decoders {name}] {msg}", flush=True))
+        torch.cuda.synchronize()
+        run = _counts()
+        counts = {k: counts[k] + run[k] for k in counts}
+        losses = [h["train_loss"] for h in res.history]
+        vals = [h["val_loss"] for h in res.history]
+        print(f"[decoders {name}] 3 epochs in {time.perf_counter() - t0:.2f} s; train loss {losses}; val loss "
+              f"{vals}; launches {({k: run[k] for k in kernels})}", flush=True)
+        if not (losses[-1] < losses[0] and all(np.isfinite(vals))):
+            raise AssertionError(f"{name}: the train loss did not fall or val is not finite")
+        for kernel in kernels:
+            if run[kernel] <= 0:
+                raise AssertionError(f"{name} never launched {kernel}: {run}")
+        if run["fused_output"] or run["fused_dw_adamw"]:
+            raise AssertionError(f"{name} launched a kernel of the linear projection: {run}")
+        results[name] = res
+    path = os.path.join(workdir, "conv_ps.npz")
+    save_params(results["conv_ps_attn_v1"].params, path, configs["conv_ps_attn_v1"][0])
+    g = torch.Generator(device="cuda").manual_seed(9)
+    batch_idx = torch.randint(0, n_samples, (8, 1024), generator=g, device="cuda")
+    conv_rates = {}
+    for name, (mcfg, _) in configs.items():
+        state = state_from_params(results[name].params, tcfg)
+        conv_rates[name] = _steps_per_s(state, ds, batch_idx, mcfg, tcfg)
+        if name in ("conv_ps_attn_v1", "conv_attn_v1"):
+            _profile_step(state, ds, batch_idx[0], mcfg, tcfg, name)
+        del state
+    print(f"[decoders] steps/s at batch 1024: {json.dumps(conv_rates)}; phase 5's linear fused "
+          f"{rates['fused']}, attn_v1 {rates['attn_v1']} ({card})", flush=True)
+    return counts, path
+
+
+def _conv_cli(workdir: str, path: str) -> dict:
+    """7b: the conv_ps checkpoint through the CLI's render and eval, the
+    test strings with the f32 attention kernel (and f32 conv stages)
+    against the plain path, and
+    one request through serve's RenderServer (bf16 frontend, K7) against a
+    direct render -> the launches."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import replace
+    from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
+    from ai_font_renderer_tpu_torch.render import render_batch, render_batch_u8_async
+    from ai_font_renderer_tpu_torch.render.server import RenderServer, request_render
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = os.path.join(workdir, "conv_renders")
+    t0 = time.perf_counter()
+    rc, _ = _cli(["render", "--weights", path, "--out", out], "decoders render")
+    t_render = time.perf_counter() - t0
+    files = sorted(os.listdir(out)) if rc == 0 else []
+    if files != sorted(f"string_{i}.bmp" for i in range(15)):
+        raise AssertionError(f"render of the conv_ps npz: exit {rc}, files {files}")
+    params, mcfg = load_params_with_config(path, device="cuda")
+    if (mcfg.decoder, mcfg.decoder_grid, mcfg.decoder_channels) != ("conv_ps", (5, 20), (128, 128, 64, 32, 16)):
+        raise AssertionError(f"the conv_ps npz's __config__ reads back as {mcfg}")
+    want = np.round(np.clip(render_batch(params, TEST_STRINGS, mcfg), 0, 1) * 255)
+    bmps = np.stack([np.round(read_bmp(os.path.join(out, f"string_{i}.bmp")) * 255) for i in range(15)])
+    if np.abs(bmps - want).max() > 1:
+        raise AssertionError("the CLI's conv BMPs differ from a direct render")
+    t0 = time.perf_counter()
+    rc, lines = _cli(["eval", "--weights", path, "--num-samples", "20480"], "decoders eval")
+    t_eval = time.perf_counter() - t0
+    result = json.loads(lines[-1]) if rc == 0 and lines else {}
+    if result.get("val_samples") != 4096 or not np.isfinite(result.get("val_mse", np.nan)):
+        raise AssertionError(f"eval of the conv_ps npz: exit {rc}, {result}")
+    # f32 stages: bf16 ones would round the kernel's and the plain path's
+    # frontends, equal to f32 rounding, onto other bf16 neighbours.
+    _render_test_strings(params, replace(mcfg, fused_attention=True, bf16_matmul=False),
+                         os.path.join(workdir, "conv_k5"), "decoders render K5")
+    scfg = replace(mcfg, fused_attention_v2=True, bf16_frontend=True)
+    sock = os.path.join(workdir, "conv.sock")
+    strings = SERVE_REQUESTS["mid"]
+    srv = RenderServer(params, scfg, socket_path=sock, batch_size=64)
+    srv.start()
+    try:
+        header, payloads = request_render(sock, strings)
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    counts = _counts()
+    got = np.stack([np.frombuffer(p, np.uint8).reshape(80, 240) for p in payloads])
+    # The server renders fixed batches of 64, padded with empty strings;
+    # cuDNN may take other algorithms at another batch size, so the reply
+    # is held to a direct render of that same batch.
+    padded = strings + [""] * (64 - len(strings))
+    direct = render_batch_u8_async(params, padded, scfg).cpu().numpy()[: len(strings)]
+    alone = render_batch_u8_async(params, strings, scfg).cpu().numpy()
+    batch_diff = int(np.abs(alone.astype(int) - direct.astype(int)).max())
+    print(f"[decoders] conv_ps npz: render 15 BMPs in {t_render:.2f} s (__config__ {mcfg.decoder}, "
+          f"{mcfg.decoder_grid}, {mcfg.decoder_channels}); eval {t_eval:.2f} s: {json.dumps(result)}; serve "
+          f"{len(strings)} strings byte-equal to a direct render of the server's batch: "
+          f"{np.array_equal(got, direct)} (a render of the {len(strings)} alone differs by up to {batch_diff} "
+          f"gray levels); launches {counts}", flush=True)
+    if header["count"] != len(strings) or not np.array_equal(got, direct) or batch_diff > 1:
+        raise AssertionError("the conv serve reply differs from a direct render")
+    for name in ("fused_attention", "fused_attention2", "attention_mma_fwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the conv render and serve never launched {name}: {counts}")
+    return counts
+
+
+def _int8_product_rows(params, served, card) -> list[dict]:
+    """7c: the int8 product on the frontend's activations of real strings
+    at M = 15, 64 and 1024: its int32 accumulators against the f64 plain
+    product (equal), and the times of the product, the activations'
+    quantization, the epilogue and K1 on the same activations."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.ops.fused_output import fused_output
+    from ai_font_renderer_tpu_torch.ops.quantized import (
+        int8_product,
+        int8_product_reference,
+        quantize_activations,
+    )
+
+    mcfg = ModelConfig(fused_attention=True)
+    w_q, s, b = served["out_w_q"], served["out_w_scale"], served["out_b"]
+    k, n = w_q.shape
+    rows = []
+    for m, strings in ((15, TEST_STRINGS), (64, SERVE_REQUESTS["long"][:64]),
+                       (1024, _atlas_strings(1024, 100, seed=3))):
+        codes = torch.from_numpy(encode_codes(strings, 100)).cuda()
+        with torch.no_grad():
+            flat = font_renderer.frontend(served, codes, mcfg)
+        a_q, a_s = quantize_activations(flat)
+        acc = int8_product(a_q, w_q)
+        ref = int8_product_reference(a_q, w_q)
+        torch.cuda.synchronize()
+        if not torch.equal(acc, ref):
+            raise AssertionError(f"int8 accumulators at M={m} differ from the f64 product in "
+                                 f"{int((acc != ref).sum())} places")
+        iters = 20 if m < 256 else 10
+        bound_ms, bound_by = _bound(k * n + m * k + 4 * m * n, 2 * m * k * n, INT8_TENSOR_OPS)
+        row = {
+            "shape": f"M={m},K={k},N={n}",
+            "max_abs_err": 0.0,
+            "largest_acc": int(acc.abs().max()),
+            "ms": time_ms(lambda: int8_product(a_q, w_q), iters),
+            "plain_ms": time_ms(lambda: int8_product_reference(a_q, w_q), 3),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "quantize_ms": time_ms(lambda: quantize_activations(flat), iters),
+            "epilogue_ms": time_ms(lambda: torch.clamp(acc.float() * (a_s[:, None] * s[None, :]) + b, 0.0, 1.0),
+                                   iters),
+            "k1_ms": time_ms(lambda: fused_output(flat, params["out_w"], params["out_b"]), iters),
+            # The same product on W_q as stored (row-major): what _int_mm
+            # takes without the column-major copy.
+            "row_major": _int_mm_row_major(a_q, w_q, iters),
+        }
+        print(f"[int8 product] {json.dumps(row)} ({card})", flush=True)
+        rows.append(row)
+        del acc, ref
+    return rows
+
+
+def _int_mm_row_major(a_q, w_q, iters) -> str:
+    """Whether torch._int_mm takes a row-major W_q on this card, and its
+    ms if it does; a measurement only: the port always hands it the
+    column-major copy."""
+    a = a_q if a_q.shape[0] > 16 else torch.nn.functional.pad(a_q, (0, 0, 0, 17 - a_q.shape[0]))
+    try:
+        torch._int_mm(a, w_q)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return f"refused: {str(e).splitlines()[0][:120]}"
+    return f"{time_ms(lambda: torch._int_mm(a, w_q), iters):.4f} ms"
+
+
+def _int8_error_bound(params, served, strings, mcfg) -> np.ndarray:
+    """ops.quantized.int8_error_bound for these strings' sheets, plus 1e-4
+    for the f32 sums of both paths (K1_TOL's reason)."""
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.ops.quantized import int8_error_bound
+
+    codes = torch.from_numpy(encode_codes(strings, mcfg.max_length)).cuda()
+    with torch.no_grad():
+        flat = font_renderer.frontend(served, codes, mcfg)
+    bound = int8_error_bound(flat, params["out_w"], served["out_w_scale"]) + K1_TOL
+    return bound.reshape(len(strings), mcfg.sheet_height, mcfg.sheet_width).cpu().numpy()
+
+
+def _int8_serving(workdir: str, card: str, k1_atlas_gps: float) -> tuple[dict, list[dict]]:
+    """7c: phase 5's fused weights in int8: the accumulators and times of
+    the product, the sheets against the plain f32 path, `render --int8`,
+    the 4096-sheet atlas beside K1's, and phase 4's requests on an int8
+    server -> (the launches, the product's rows)."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import replace
+    from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
+    from ai_font_renderer_tpu_torch.ops import quantized
+    from ai_font_renderer_tpu_torch.render import render_atlas, render_batch, render_batch_u8_async
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config
+
+    weights = os.path.join(workdir, "trained.npz")
+    params, mcfg = load_params_with_config(weights, device="cuda")
+    served = quantized.quantize_params(params)
+    rows = _int8_product_rows(params, served, card)
+
+    strings = TEST_STRINGS + _atlas_strings(1024, 100, seed=4)
+    q = render_batch(served, strings, mcfg)
+    # tests/test_quantized.py:56-57 hold the int8 sheets to the model's
+    # default forward (bf16 operands, f32 sums): 4/255 at most and 0.5/255
+    # on average, on a narrow model from a seed. The mean holds here; the
+    # most does not (4.3-4.7 gray levels on the trained full-width model,
+    # PERF.md, where the JAX package's int8 path gives the same sheets), so
+    # each pixel is held to the quantization's own bound against exact f32
+    # products instead.
+    ref = render_batch(params, strings, mcfg)
+    f32 = render_batch(params, strings, replace(mcfg, bf16_matmul=False))
+    diff, diff32 = np.abs(q - ref), np.abs(q - f32)
+    over = float((diff32 - _int8_error_bound(params, served, strings, mcfg)).max())
+    print(f"[int8] {len(strings)} sheets (the 15 test strings first) vs the default forward: max "
+          f"{diff.max() * 255:.3f} gray levels (the test strings {diff[:15].max() * 255:.3f}; the JAX package's "
+          f"test bound {INT8_MAX_TOL * 255:.0f}), mean {diff.mean() * 255:.4f} (tol {INT8_MEAN_TOL * 255}); vs "
+          f"exact f32 products: max {diff32.max() * 255:.3f}, mean {diff32.mean() * 255:.4f}, largest excess over "
+          f"the quantization bound {over:.3g} (tol 0)", flush=True)
+    if not (np.isfinite(q).all() and diff.mean() < INT8_MEAN_TOL and over <= 0):
+        raise AssertionError(f"int8 sheets: mean {diff.mean()}, over the quantization bound by {over}")
+
+    counts = {k: 0 for k in _counts()}
+    int8_launches, k1_in_int8 = {}, 0
+    torch.cuda.synchronize()
+    _reset_counts()
+    quantized.int8_product.launches = 0
+    out = os.path.join(workdir, "int8_renders")
+    rc, _ = _cli(["render", "--weights", weights, "--int8", "--out", out], "int8 render")
+    torch.cuda.synchronize()
+    run = _counts()
+    counts = {k: counts[k] + run[k] for k in counts}
+    int8_launches["render"] = quantized.int8_product.launches
+    k1_in_int8 += run["fused_output"]
+    if rc != 0 or sorted(os.listdir(out)) != sorted(f"string_{i}.bmp" for i in range(15)):
+        raise AssertionError(f"render --int8: exit {rc}")
+    bmps = np.stack([np.round(read_bmp(os.path.join(out, f"string_{i}.bmp")) * 255) for i in range(15)])
+    if np.abs(bmps - np.round(np.clip(q[:15], 0, 1) * 255)).max() > 1:
+        raise AssertionError("render --int8 BMPs differ from the direct int8 render")
+
+    atlas_strings = _atlas_strings(4096, 100)
+    rcfg = replace(mcfg, fused_attention=True)
+    gps = {}
+    for name, p, cfg in (("int8", served, rcfg), ("K1", params, replace(rcfg, use_pallas_output=True))):
+        torch.cuda.synchronize()
+        _reset_counts()
+        quantized.int8_product.launches = 0
+        warm = render_atlas(p, atlas_strings, cfg)
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            atlas = render_atlas(p, atlas_strings, cfg)
+            torch.cuda.synchronize()
+            runs.append(4096 * 100 / (time.perf_counter() - t0))
+        run = _counts()
+        counts = {k: counts[k] + run[k] for k in counts}
+        if name == "int8":
+            int8_launches["atlas"] = quantized.int8_product.launches
+            k1_in_int8 += run["fused_output"]
+        if atlas.shape != (4096, 80, 240) or not bool(torch.isfinite(atlas).all()) or not torch.equal(atlas, warm):
+            raise AssertionError(f"{name} atlas misshapen, not finite or not repeatable")
+        gps[name] = sorted(runs)
+    del warm, atlas
+    print(f"[int8] atlas 4096 sheets: glyphs/s int8 {gps['int8']}, median {gps['int8'][2]}; K1 on the same "
+          f"weights {gps['K1']}, median {gps['K1'][2]}; phase 3's K1 atlas median {k1_atlas_gps} ({card})",
+          flush=True)
+    _profile_atlas(served, atlas_strings, rcfg)
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    quantized.int8_product.launches = 0
+    replies, latency_ms, stalls = _serve_once(params, os.path.join(workdir, "int8.sock"), int8=True)
+    torch.cuda.synchronize()
+    run = _counts()
+    counts = {k: counts[k] + run[k] for k in counts}
+    int8_launches["serve"] = quantized.int8_product.launches
+    k1_in_int8 += run["fused_output"]
+    for name, strs in SERVE_REQUESTS.items():
+        header, payloads = replies[name]
+        got = np.stack([np.frombuffer(p, np.uint8).reshape(80, 240) for p in payloads])
+        want = render_batch_u8_async(served, strs, _serve_config()).cpu().numpy()
+        if header["count"] != len(strs) or not np.array_equal(got, want):
+            raise AssertionError(f"int8 serve reply {name} differs from a direct int8 render")
+    print(f"[int8] serve: 3 concurrent requests equal direct int8 renders; latency ms {latency_ms}; stalls "
+          f"{json.dumps(stalls)}; int8 products launched {json.dumps(int8_launches)}; launches {counts}",
+          flush=True)
+    if min(int8_launches.values()) <= 0:
+        raise AssertionError(f"an int8 path never launched the int8 product: {int8_launches}")
+    if k1_in_int8:
+        raise AssertionError(f"the int8 paths launched K1 {k1_in_int8} times")
+    for name in ("fused_attention", "attention_mma_fwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"int8 serving never launched {name}: {counts}")
+    return counts, rows
+
+
+def phase_decoders(workdir: str, card: str, ds, rates: dict, k1_atlas_gps: float) -> tuple[dict, list[dict]]:
+    """Phase 7: the conv decoders (forward, training, the CLI) and int8
+    serving -> (the launches of its main paths, the int8 product's rows)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    _conv_forward_check(card)
+    seconds["conv_forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts, path = _train_conv(ds, workdir, card, rates)
+    counts = [counts]
+    seconds["conv_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts.append(_conv_cli(workdir, path))
+    seconds["conv_cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int8_counts, rows = _int8_serving(workdir, card, k1_atlas_gps)
+    counts.append(int8_counts)
+    seconds["int8"] = time.perf_counter() - t0
+    print(f"[decoders] seconds by check: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
+    return {k: sum(c[k] for c in counts) for k in counts[0]}, rows
+
+
 def _kernel_entry(name, source, replaces, rows, headline, launches, shadow=False) -> dict:
     """The kernels line's entry: the row ``headline``'s numbers, or with
     ``shadow`` those of its variant that writes W's bf16 shadow (the one
@@ -1991,13 +2407,16 @@ def main() -> int:
     k9_rows = timed("check K9", check_dw_adamw_xt)
 
     with tempfile.TemporaryDirectory() as workdir:
-        params, render_counts = timed("render", phase_render, workdir, card)
+        params, render_counts, atlas_gps = timed("render", phase_render, workdir, card)
         serve_counts = timed("serve", phase_serve, params, workdir)
         del params
-        train_counts, rates = timed("train", phase_train, workdir, card)
+        train_counts, rates, ds = timed("train", phase_train, workdir, card)
         data_counts = timed("data and weights", phase_data, workdir, card, rates["fused"])
+        decoder_counts, int8_rows = timed("decoders and int8", phase_decoders, workdir, card, ds, rates, atlas_gps)
+        del ds
     ab_counts = timed("ab_xt", phase_ab_xt)
-    by_phase = {"render": render_counts, "serve": serve_counts, "train": train_counts, "data": data_counts}
+    by_phase = {"render": render_counts, "serve": serve_counts, "train": train_counts, "data": data_counts,
+                "decoders": decoder_counts}
     print(f"[launches] by phase: {json.dumps(by_phase)}", flush=True)
     launches = {k: sum(c[k] for c in by_phase.values()) for k in render_counts}
     launches["fused_dw_adamw_xt"] = ab_counts["fused_dw_adamw_xt"]
@@ -2102,6 +2521,10 @@ def main() -> int:
             "M=1024,K=6400,N=19200,mu=bf16,xt", launches["fused_dw_adamw_xt"],
         ),
     ]
+    # The int8 product is cuBLASLt's (torch._int_mm): a library call, as the
+    # JAX package's lax.dot_general is no Pallas kernel, so it is no entry
+    # of the kernels line.
+    print(f"[int8 product] rows: {json.dumps(int8_rows)}", flush=True)
     print(f"[phase] seconds by phase: {json.dumps(phase_times)}", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))

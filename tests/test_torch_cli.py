@@ -51,7 +51,7 @@ def test_training_and_missing_weights_exit_1(argv, capsys):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--int8"], ["--implicit", "b.npz"], ["--placement", "p.npz"], ["--exported", "a.hlo"]],
+    [["--implicit", "b.npz"], ["--placement", "p.npz"], ["--exported", "a.hlo"]],
 )
 def test_later_slice_flags_exit_1(weights, extra, tmp_path, capsys):
     rc = cli.main(["render", "HI", "--weights", weights, "--out", str(tmp_path), "--device", "cpu", *extra])
@@ -80,11 +80,20 @@ def test_render_truth_writes_the_shaped_ground_truth(hinted, tmp_path, capsys):
         assert (tmp_path / f"string_{i}.bmp").read_bytes() == encode_bmp(sheet), i
 
 
-def test_other_subcommands_and_serve_flags_exit_1(weights, capsys):
+def test_other_subcommands_and_serve_flags_exit_1(weights, capsys, monkeypatch, tmp_path):
     assert cli.main(["export"]) == 1
     assert cli.main(["train-placement"]) == 1
     assert "item 14" in capsys.readouterr().out
-    assert cli.main(["serve", "--weights", weights, "--int8", "--device", "cpu"]) == 1
+    # serve --int8 is ported: it serves until interrupted, then exits 0.
+    import time
+
+    def interrupt(_):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(time, "sleep", interrupt)
+    sock = str(tmp_path / "afr.sock")
+    assert cli.main(["serve", "--weights", weights, "--int8", "--socket", sock, "--device", "cpu"]) == 0
+    assert "Render server listening" in capsys.readouterr().out
     assert cli.main(["serve", "--weights", weights, "--tcp", "nope", "--device", "cpu"]) == 1
     assert "HOST:PORT" in capsys.readouterr().out
 
@@ -233,9 +242,6 @@ def test_kernels_flag_selects_the_projection_kernels(monkeypatch, tmp_path, kern
     [
         (["--mesh", "3"], "item 15"),
         (["--mesh", "2,1"], "item 15"),
-        (["--decoder", "conv"], "item 8"),
-        (["--decoder", "conv_ps"], "item 8"),
-        (["--decoder-channels", "8,8"], "item 8"),
     ],
 )
 def test_later_slice_training_flags_exit_1(monkeypatch, tmp_path, capsys, argv, words):
@@ -247,14 +253,16 @@ def test_later_slice_training_flags_exit_1(monkeypatch, tmp_path, capsys, argv, 
 
 @pytest.fixture
 def tiny_model(monkeypatch):
-    """The CLI's configs with the model narrowed to a CPU test size."""
+    """The CLI's configs with the model narrowed to a CPU test size (a conv
+    decoder's grid too, which a linear model ignores)."""
     from ai_font_renderer_tpu_torch.config import replace
 
     configs = cli._configs
 
     def small(args):
         mcfg, tcfg = configs(args)
-        return replace(mcfg, max_length=16, hidden_dim=16, sheet_height=16, sheet_width=24), tcfg
+        return replace(mcfg, max_length=16, hidden_dim=16, sheet_height=16, sheet_width=24,
+                       decoder_grid=(4, 4)), tcfg
 
     monkeypatch.setattr(cli, "_configs", small)
 

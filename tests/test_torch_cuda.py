@@ -1045,3 +1045,103 @@ def test_device_dataset_from_disk_onto_the_card(cuda, tmp_path):
     built = build_device_dataset(bake_atlas(FIRACODE_PATH), 40, device=cuda)
     assert disk.targets_u8.device.type == "cuda" and disk.codes.device.type == "cuda"
     assert torch.equal(disk.targets_u8, built.targets_u8) and torch.equal(disk.codes, built.codes)
+
+
+# --- the conv decoders and int8 serving on the card --------------------------
+
+
+@pytest.mark.parametrize("decoder", ["conv", "conv_ps"])
+def test_conv_forward_f32_on_the_card_matches_the_cpu(cuda, decoder):
+    """The full-width conv decoders (default plan) in f32 on the card
+    (cuDNN, TF32 off) against the same forward on the CPU: 1e-5 before
+    the clamp; TF32 would show as about 1e-3."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.models import font_renderer
+
+    mcfg = ModelConfig(decoder=decoder, bf16_matmul=False)
+    params = font_renderer.init(torch.Generator().manual_seed(0), mcfg, "cpu")
+    codes = torch.randint(32, 127, (15, 100), generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    flat = font_renderer.frontend(params, codes, mcfg)
+    want = font_renderer.conv_decode(params, flat, mcfg)
+    got = font_renderer.conv_decode({k: v.to(cuda) for k, v in params.items()}, flat.to(cuda), mcfg)
+    assert got.shape == (15, 80, 240)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("flag", [None, "fused_attention", "fused_attention_v2"])
+@pytest.mark.parametrize("decoder", ["conv", "conv_ps"])
+def test_conv_training_step_on_the_card(cuda, decoder, flag):
+    """One standard step of a full-width conv model at batch 16, dropout
+    off, through each attention flag (f32: K5/K6, v2: K7/K8 in f32), against
+    the same step on the CPU: the loss to 1e-4 relative, every first moment
+    mu/(1-b1) (the gradient, f32 moments) to 1e-2 of its largest value:
+    f32 sums in other orders through five convolutions, and pixels within
+    f32 rounding of a clamp bound that take the mask's other side (1.45e-3
+    of the largest seen on the embedding, the farthest parameter)."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig, replace
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+
+    plain = ModelConfig(decoder=decoder, bf16_matmul=False, dropout_rate=0.0, fc_dropout_rate=0.0)
+    mcfg = replace(plain, **{flag: True}) if flag else plain
+    params = font_renderer.init(torch.Generator().manual_seed(2), plain, "cpu")
+    params["dec_out_b"] = torch.full((1,), 0.5)  # pixels inside the clamp carry a gradient
+    gen = torch.Generator().manual_seed(3)
+    codes = torch.randint(32, 127, (16, 100), generator=gen, dtype=torch.int32)
+    targets = torch.rand(16, 80, 240, generator=gen)
+    tcfg = TrainConfig(adam_mu_bf16=False)
+    bwd = {None: None, "fused_attention": fused_attention_backward,
+           "fused_attention_v2": fused_attention2_backward}[flag]
+    before = bwd.launches if bwd else 0
+    card, closs = train_step(state_from_params({k: v.to(cuda) for k, v in params.items()}, tcfg),
+                             codes.to(cuda), targets.to(cuda), 1e-3, torch.Generator(device=cuda), mcfg, tcfg)
+    host, hloss = train_step(state_from_params(params, tcfg), codes, targets, 1e-3, torch.Generator(), plain, tcfg)
+    if bwd:
+        assert bwd.launches == before + 1
+    assert abs(float(closs) - float(hloss)) <= 1e-4 * float(hloss)
+    for k in host.mu:
+        if k == "bk":
+            continue
+        want = host.mu[k]
+        assert float((card.mu[k].cpu() - want).abs().max()) <= 1e-2 * float(want.abs().max()), k
+
+
+@pytest.mark.parametrize("m", [3, 15, 17, 64, 1024])
+def test_int_mm_accumulators_equal_the_plain_product(cuda, m):
+    """int8_product on the card (torch._int_mm, rows below 17 padded)
+    against the f64 plain product at the model's K and N: equal."""
+    from ai_font_renderer_tpu_torch.ops import quantized
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    a = torch.randint(-127, 128, (m, 6400), generator=gen, device=cuda, dtype=torch.int8)
+    w = torch.randint(-127, 128, (6400, 19200), generator=gen, device=cuda, dtype=torch.int8)
+    before = quantized.int8_product.launches
+    got = quantized.int8_product(a, w)
+    assert quantized.int8_product.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, 19200)
+    assert torch.equal(got, quantized.int8_product_reference(a, w))
+
+
+def test_int8_render_atlas_on_the_card_matches_the_cpu(cuda):
+    """An int8 render_atlas of 96 strings at full width (chunks of 64) on
+    the card, with the f32 attention, against the CPU's int8 render. The
+    frontends agree to f32 rounding, so the int8 activations are equal but
+    where a value lies within that rounding of a half step: a pixel then
+    moves by about max|flat| * max|W| / 127 per flipped unit (about 5e-4
+    here). Held to 1e-3 at most and 1e-6 in the median row."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.ops.quantized import quantize_params
+    from ai_font_renderer_tpu_torch.render import render_atlas
+
+    mcfg = ModelConfig(fused_attention=True)
+    params = font_renderer.init(torch.Generator().manual_seed(4), mcfg, "cpu")
+    served = quantize_params(params)
+    rng = np.random.default_rng(5)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ "))
+    strings = ["".join(r) for r in letters[rng.integers(0, 27, (96, 60))]]
+    want = render_atlas(served, strings, mcfg, chunk=64)
+    got = render_atlas({k: v.to(cuda) for k, v in served.items()}, strings, mcfg, chunk=64).cpu()
+    assert got.shape == (96, 80, 240) and bool(torch.isfinite(got).all())
+    err = (got - want).abs().amax(dim=(1, 2))
+    assert float(err.max()) <= 1e-3 and float(err.median()) <= 1e-6

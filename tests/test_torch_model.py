@@ -151,9 +151,12 @@ def test_constraint_and_not_ported_errors(jax_params):
     _, tc = _pair(bf16_cotangent=True, bf16_matmul=False)
     with pytest.raises(ValueError, match="bf16_cotangent"):
         tfr.apply(params, codes, tc)
+    # The conv decoders are ported: init and apply run, and on JAX's
+    # parameters apply matches JAX's (f32 stages, the f32 bound).
     for decoder in ("conv", "conv_ps"):
-        _, tc = _pair(decoder=decoder)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tfr.apply(params, codes, tc)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tfr.init(torch.Generator(), tc, "cpu")
+        jc, tc = _pair(decoder=decoder, decoder_grid=(4, 4), bf16_matmul=False)
+        assert "dec_out_w" in tfr.init(torch.Generator(), tc, "cpu")
+        conv = {k: np.asarray(v) for k, v in jfr.init(jax.random.PRNGKey(0), jc).items()}
+        want = np.asarray(jfr.apply(conv, jnp.asarray(codes.numpy()), jc))
+        got = tfr.apply(tfr.params_from_jax(conv, "cpu"), codes, tc).numpy()
+        assert got.shape == (2, 16, 24) and float(np.abs(got - want).max()) <= 1e-5
