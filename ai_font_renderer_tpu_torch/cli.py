@@ -14,7 +14,10 @@ evaluate weights.
                      from ``.npz`` or ``.pth`` weights (``--int8``: the
                      projection in int8); ``--truth`` draws the shaped
                      ground truth (GSUB + GPOS, ``--hinted`` grid-fitted)
-                     with no model;
+                     with no model; ``--implicit BANK`` composes a SIREN
+                     glyph bank at the layout engine's positions, or with
+                     ``--placement NET`` at the learned placement net's
+                     (the fully neural path), at any ``--scale``;
   * ``serve``        run the batched render server (``--int8`` as render);
   * ``fontgen``      write the dataset in the reference's file format:
                      ``data.txt``, ``1.bmp``..``N.bmp`` and
@@ -67,8 +70,6 @@ _LATER = (
 )
 # The ROADMAP item that brings each refused option or subcommand.
 _ITEM = {
-    "--implicit": "12",
-    "--placement": "13",
     "--exported": "16",
     "export": "16",
     "train-placement": "14",
@@ -150,6 +151,62 @@ def _build_dataset(mcfg, tcfg, font, device, subset=None):
     return atlas, ds
 
 
+def _warn_bank_font_mismatch(bank_path: str, font_path: str) -> None:
+    """Warn when a SIREN bank tagged with its font is composed with another
+    font's metrics (``--font`` defaults to FiraCode; a Montserrat bank laid
+    out with FiraCode's advances renders a near-blank sheet). Untagged
+    banks, the committed artifacts among them, skip the check."""
+    from .utils.checkpoint import siren_font
+
+    tag = siren_font(bank_path)
+    if tag is not None and tag != os.path.basename(font_path):
+        print(
+            f"WARNING: SIREN bank {bank_path} was trained against {tag} "
+            f"but --font is {os.path.basename(font_path)}; the composed "
+            "layout uses the wrong font's metrics and will render "
+            "garbage. Pass the matching --font."
+        )
+
+
+def _render_implicit(args) -> int:
+    """``render --implicit BANK [--placement NET]``: the bank composed at the
+    layout engine's positions, or at the placement net's."""
+    from .device import resolve_device
+    from .fontgen.bmp import write_bmp
+    from .render.implicit_sheet import render_implicit_sheets, render_learned_sheets
+    from .utils.checkpoint import load_params_with_config, load_siren
+
+    for path, what in ((args.implicit, "SIREN bank"), (args.placement, "placement weights")):
+        if path and not os.path.exists(path):
+            print(f"Error: {what} not found: {path}")
+            return 1
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"Error: {e}")
+        return 1
+    _warn_bank_font_mismatch(args.implicit, args.font)
+    sp, scfg, charset = load_siren(args.implicit, device=device)
+    strings = args.strings or TEST_STRINGS
+    if args.placement:
+        pp, pcfg = load_params_with_config(args.placement, device=device)
+        sheets = render_learned_sheets(
+            sp, pp, strings, args.font, scfg, pcfg, scale=args.scale, charset=charset,
+            hard=args.hard_placement, monotone=args.monotone_placement,
+            baked=args.baked, phased=args.phased,
+        )
+    else:
+        sheets = render_implicit_sheets(
+            sp, strings, args.font, scfg, scale=args.scale, charset=charset,
+            baked=args.baked, phased=args.phased,
+        )
+    os.makedirs(args.out, exist_ok=True)
+    for i, sheet in enumerate(sheets.cpu().numpy()):
+        write_bmp(os.path.join(args.out, f"string_{i}.bmp"), sheet)
+    print(f"Saved {len(sheets)} implicit renders to {args.out}/")
+    return 0
+
+
 def cmd_render(args) -> int:
     from .render import render_strings
 
@@ -165,7 +222,9 @@ def cmd_render(args) -> int:
             write_bmp(os.path.join(args.out, f"string_{i}.bmp"), sheet)
         print(f"Saved {len(sheets)} shaped ground-truth strings to {args.out}/")
         return 0
-    if _refuse_later(args, ("--implicit", "--placement", "--exported")):
+    if args.implicit:
+        return _render_implicit(args)
+    if _refuse_later(args, ("--exported",)):
         return 1
     loaded = _load(args)
     if loaded is None:
@@ -388,10 +447,27 @@ def _subcommands(argv: list[str]) -> int:
     p_ev.add_argument("--font", default=FIRACODE_PATH)
     p_ev.add_argument("--kernels", choices=sorted(_KERNELS), default="none",
                       help="output or fused: the projection kernel K1 (only use_pallas_output is taken)")
+    p_ren.add_argument("--implicit", metavar="SIREN_NPZ", default=None,
+                       help="compose a SIREN glyph bank (utils/checkpoint.save_siren) at the layout "
+                       "engine's positions; any --scale")
+    p_ren.add_argument("--placement", metavar="PLACEMENT_NPZ", default=None,
+                       help="with --implicit: positions from the learned placement net instead of "
+                       "the layout engine (the fully neural path)")
+    p_ren.add_argument("--hard-placement", action="store_true",
+                       help="with --placement: discrete decode (argmax line, thresholded contribution)")
+    p_ren.add_argument("--monotone-placement", action="store_true",
+                       help="with --placement: the line indices decoded jointly under the engine's "
+                       "monotone-break rule (implies --hard-placement)")
+    p_ren.add_argument("--scale", type=float, default=1.0,
+                       help="output resolution multiplier for --implicit renders")
+    p_ren.add_argument("--baked", type=int, default=0, metavar="SS",
+                       help="with --implicit: bake the bank once at SSx the cell resolution and "
+                       "sample it bilinearly (0: evaluate the bank at every window pixel)")
+    p_ren.add_argument("--phased", type=int, default=0, metavar="P",
+                       help="with --implicit: bake the bank at PxP subpixel phases and place whole "
+                       "blocks by one-hot products; positions quantize to 1/P px (0: exact)")
     # Options of later slices are accepted so that they fail with a clear
     # message rather than a usage error.
-    p_ren.add_argument("--implicit", default=None, help="not ported yet")
-    p_ren.add_argument("--placement", default=None, help="not ported yet")
     for p in (p_ren, p_srv):
         p.add_argument("--int8", action="store_true",
                        help="the linear head as an int8 x int8 product (per-channel weight scales, "

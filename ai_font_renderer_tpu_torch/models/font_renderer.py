@@ -105,23 +105,17 @@ def _normal(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device)
 
 
-def init(
+def init_frontend(
     generator: torch.Generator,
     cfg: ModelConfig = ModelConfig(),
     device: str | torch.device | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Initialise parameters with the JAX package's distributions (torch's
-    module defaults): N(0,1) embedding, N(0, pos_init_std) positions,
-    xavier-uniform q/k/v, U(+-1/sqrt(fan_in)) for the other weights, zero
-    attention biases, unit LayerNorm scale; a conv decoder's weights HWIO
-    with torch's conv bound U(+-1/sqrt(9 * c_in)) and the ink bias at 1.0
-    (white). The numbers differ from JAX's threefry draws; the
-    distributions do not. Draws run on the generator's device and land on
-    ``device``."""
+    """The frontend's parameters alone (embedding, positions, attention
+    blocks, LayerNorm, fc1): :func:`init`'s first draws, so they equal its
+    frontend for the same generator state, without the decoder (the
+    placement net, models/placement.py, has none)."""
     dev = resolve_device(device)
     e, h = cfg.embedding_dim, cfg.hidden_dim
-    flat = cfg.max_length * h
-    pixels = cfg.sheet_height * cfg.sheet_width
     xavier = (6.0 / (e + e)) ** 0.5
     g = generator
 
@@ -152,6 +146,28 @@ def init(
         for b in ("bq", "bk", "bv", "bo", "ln_bias"):
             params[f"{b}_b{i}"] = zeros(e)
         params[f"ln_scale_b{i}"] = torch.ones(e, device=g.device)
+    return {k: v.to(dev) for k, v in params.items()}
+
+
+def init(
+    generator: torch.Generator,
+    cfg: ModelConfig = ModelConfig(),
+    device: str | torch.device | None = None,
+) -> dict[str, torch.Tensor]:
+    """Initialise parameters with the JAX package's distributions (torch's
+    module defaults): N(0,1) embedding, N(0, pos_init_std) positions,
+    xavier-uniform q/k/v, U(+-1/sqrt(fan_in)) for the other weights, zero
+    attention biases, unit LayerNorm scale; a conv decoder's weights HWIO
+    with torch's conv bound U(+-1/sqrt(9 * c_in)) and the ink bias at 1.0
+    (white). The numbers differ from JAX's threefry draws; the
+    distributions do not. Draws run on the generator's device and land on
+    ``device``."""
+    dev = resolve_device(device)
+    params = init_frontend(generator, cfg, generator.device)
+    h = cfg.hidden_dim
+    flat = cfg.max_length * h
+    pixels = cfg.sheet_height * cfg.sheet_width
+    g = generator
     if cfg.decoder == "linear":
         params["out_w"] = _uniform(g, (flat, pixels), 1.0 / flat**0.5)
         params["out_b"] = _uniform(g, (pixels,), 1.0 / flat**0.5)

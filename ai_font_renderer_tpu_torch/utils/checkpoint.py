@@ -7,6 +7,8 @@ architecture fields as JSON. A file written by either package loads in the
 other with the same arrays and config. A name ending in ``.pth`` is the
 reference's bare torch state_dict instead (``torch_interop.py``); it holds
 no config, so loading infers it from the shapes, as the JAX package does.
+A SIREN glyph bank has its own npz (``save_siren``/``load_siren``): the
+weights plus a ``__siren_config__`` entry, the same file in both packages.
 
 :class:`CheckpointManager` keeps a run's full state (parameters, AdamW
 moments, step count), its best-weights snapshot and the host's control
@@ -103,6 +105,54 @@ def load_params_with_config(
                 kw[tup_field] = tuple(kw[tup_field])
         return params, dataclasses.replace(base_cfg, **kw)
     return params, infer_model_config(params, base_cfg)
+
+
+_SIREN_CONFIG_KEY = "__siren_config__"
+
+
+def save_siren(params, cfg, charset: str, filename: str, font: str | None = None) -> None:
+    """Save a SIREN glyph bank (models/siren.py) to one npz: its weights and
+    a ``__siren_config__`` JSON entry holding the SirenConfig fields, the
+    charset and, with ``font`` (a TTF path), the font's basename, so a
+    render can flag a bank used with another font's metrics. The JAX
+    package's ``save_siren`` writes the same file."""
+    flat = {
+        k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        for k, v in params.items()
+    }
+    meta = {"cfg": dataclasses.asdict(cfg), "charset": charset}
+    if font:
+        meta["font"] = os.path.basename(font)
+    flat[_SIREN_CONFIG_KEY] = np.array(json.dumps(meta))
+    d = os.path.dirname(filename)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    np.savez(filename, **flat)
+    print(f"SIREN bank saved to {filename}")
+
+
+def load_siren(filename: str, device: str | torch.device | None = None):
+    """Load a bank saved by either package's ``save_siren`` -> (params on
+    ``device``, SirenConfig, charset)."""
+    from ..models.siren import SirenConfig
+
+    dev = resolve_device(device)
+    with np.load(filename) as z:
+        if _SIREN_CONFIG_KEY not in z.files:
+            raise ValueError(f"{filename} is not a SIREN bank (no {_SIREN_CONFIG_KEY} entry)")
+        meta = json.loads(str(z[_SIREN_CONFIG_KEY][()]))
+        arrays = {k: z[k] for k in z.files if k != _SIREN_CONFIG_KEY}
+    print(f"SIREN bank loaded from {filename}")
+    return params_from_jax(arrays, dev), SirenConfig(**meta["cfg"]), meta["charset"]
+
+
+def siren_font(filename: str) -> str | None:
+    """The basename of the font a bank was trained against, or None for an
+    untagged bank (the committed artifacts among them)."""
+    with np.load(filename) as z:
+        if _SIREN_CONFIG_KEY not in z.files:
+            return None
+        return json.loads(str(z[_SIREN_CONFIG_KEY][()])).get("font")
 
 
 def _state_record(state) -> dict:

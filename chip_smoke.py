@@ -98,11 +98,27 @@ Phases, each of which raises on failure, each with its seconds:
    quantization's bound of exact f32 products, `render --int8`, the
    4096-sheet atlas in int8 beside K1's, phase 4's requests on an int8
    server byte-equal to a direct int8 render.
-8. One JSON line listing every kernel (K1-K9, the operand pass, the
+8. The implicit render path on the committed artifacts (artifacts/*/:
+   SIREN bank hidden 128, 4 layers, cell 64; placement net E 64, H 8,
+   hidden 128), both fonts: (a) the 15 test strings through each pair
+   (soft decode) within 1e-4 of golden_mse.json per string and under the
+   mean bound, the kerned engine-layout oracle under its bound, both
+   against the CPU's sheets, two card renders bit-equal; (b) `render
+   --implicit --placement` in this process with `--hard-placement`,
+   `--monotone-placement`, `--baked 4`, `--phased 8` and `--scale 4`, 15
+   BMPs each, and the argmax and monotone line indices on the card equal
+   to the CPU's; (c) the nets with each fused attention flag at B = 15 and
+   1024 against the plain attention, through the general attention
+   forward (E = 64, H = 8), and that forward alone at B = 1024, rate 0,
+   f32 and bf16, timed; (d) glyphs/s of the fully neural render (exact at
+   256 sheets, baked 4 at 1024, phased 8 at 1024 and 4096, each split into
+   host, net, bake and composite) and of the engine-layout phased render
+   at 1024, and the exact compose's peak device memory.
+9. One JSON line listing every kernel (K1-K9, the operand pass, the
    GEMMs of K2 and K3, the bf16 attention forward and backward on
    tensor cores, and the general attention forward and backward) with its
    launches on the
-   main paths (phases 3-7 and the K4/K9 A/B; counts are set to 0
+   main paths (phases 3-8 and the K4/K9 A/B; counts are set to 0
    just before each drive and read just after), its error and its times.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
@@ -2347,6 +2363,340 @@ def phase_decoders(workdir: str, card: str, ds, rates: dict, k1_atlas_gps: float
     return {k: sum(c[k] for c in counts) for k in counts[0]}, rows
 
 
+# Phase 8: the implicit render path on the committed artifacts. The
+# learned sheets on the card against the CPU: tests/test_torch_implicit.py's
+# bound against the JAX package (the structured head's soft decode moves a
+# midpoint by about 1e-3 px when its logits move by 1e-5, and a glyph edge
+# its coverage by about as much). The engine-layout sheets: f32 sums in
+# another order through sin(30 x).
+IMPLICIT_SHEET_TOL = 5e-3
+IMPLICIT_ORACLE_TOL = 1e-4
+GOLDEN_TOL = 1e-4  # per-string MSE against golden_mse.json (tests/test_artifacts.py)
+LEARNED_BOUND = {"firacode": 0.009, "montserrat": 0.010}
+ORACLE_BOUND = {"firacode": 0.0042, "montserrat": 0.0031}
+# The placement net through the attention kernels against the plain
+# attention, relative to the largest |plain| value: f32 sums in another
+# order, through the soft decode.
+PLACEMENT_REL_TOL = 1e-4
+LINE_MARGIN = 1e-4  # line indices compared where the CPU's top-two margin exceeds it
+IMPLICIT_FONTS = ("firacode", "montserrat")
+
+
+def _implicit_paths(font: str) -> tuple[str, str, str]:
+    from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, MONTSERRAT_PATH
+
+    art = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts", font)
+    font_path = FIRACODE_PATH if font == "firacode" else MONTSERRAT_PATH
+    return os.path.join(art, "siren_finetuned.npz"), os.path.join(art, "placement_finetuned.npz"), font_path
+
+
+def _implicit_pair(font: str, device: str):
+    """(bank params, SirenConfig, charset, net params, net config) on ``device``."""
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config, load_siren
+
+    bank, net, _ = _implicit_paths(font)
+    sp, scfg, charset = load_siren(bank, device=device)
+    pp, pcfg = load_params_with_config(net, device=device)
+    return sp, scfg, charset, pp, pcfg
+
+
+def _implicit_locks(card: str) -> None:
+    """8a: the 15 test strings through each committed pair on the card (soft
+    decode): each string's MSE within 1e-4 of golden_mse.json and the mean
+    under its bound, the kerned engine-layout oracle under its bound, both
+    against the CPU's sheets, and a second card render bit-equal."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.fontgen.dataset import bake_font_atlas, unit_ground_truth
+    from ai_font_renderer_tpu_torch.render.implicit_sheet import render_implicit_sheets, render_learned_sheets
+
+    for font in IMPLICIT_FONTS:
+        bank, _, font_path = _implicit_paths(font)
+        with open(os.path.join(os.path.dirname(bank), "golden_mse.json")) as f:
+            golden = json.load(f)["per_string_mse"]
+        gt = unit_ground_truth(bake_font_atlas(font_path, proportional=font == "montserrat"), TEST_STRINGS)
+        sheets, oracle = {}, {}
+        for dev in ("cuda", "cpu"):
+            sp, scfg, charset, pp, pcfg = _implicit_pair(font, dev)
+            sheets[dev] = render_learned_sheets(sp, pp, TEST_STRINGS, font_path, scfg, pcfg, charset=charset)
+            oracle[dev] = render_implicit_sheets(sp, TEST_STRINGS, font_path, scfg, charset=charset).cpu().numpy()
+            if dev == "cuda":
+                again = render_learned_sheets(sp, pp, TEST_STRINGS, font_path, scfg, pcfg, charset=charset)
+                oracle_again = render_implicit_sheets(sp, TEST_STRINGS, font_path, scfg, charset=charset)
+                repeat_equal = torch.equal(again, sheets[dev]) and np.array_equal(
+                    oracle_again.cpu().numpy(), oracle[dev])
+            sheets[dev] = sheets[dev].cpu().numpy()
+        got = sheets["cuda"]
+        mse = [float(np.mean((got[i] - gt[i]) ** 2)) for i in range(len(TEST_STRINGS))]
+        delta = float(np.max(np.abs(np.array(mse) - np.array(golden))))
+        mean = float(np.mean((got - gt) ** 2))
+        oracle_mse = float(np.mean((oracle["cuda"] - gt) ** 2))
+        err = float(np.abs(got - sheets["cpu"]).max())
+        oracle_err = float(np.abs(oracle["cuda"] - oracle["cpu"]).max())
+        print(f"[implicit] {font}: learned MSE {mean:.6f} (bound {LEARNED_BOUND[font]}), per-string "
+              f"delta to golden {delta:.3g} (tol {GOLDEN_TOL}); kerned oracle MSE {oracle_mse:.6f} (bound "
+              f"{ORACLE_BOUND[font]}); card vs CPU: learned {err:.3g} (tol {IMPLICIT_SHEET_TOL}), oracle "
+              f"{oracle_err:.3g} (tol {IMPLICIT_ORACLE_TOL}); two card renders bit-equal {repeat_equal} ({card})",
+              flush=True)
+        if not (got.shape == (15, 80, 240) and np.isfinite(got).all() and delta < GOLDEN_TOL
+                and mean < LEARNED_BOUND[font] and oracle_mse < ORACLE_BOUND[font]
+                and err <= IMPLICIT_SHEET_TOL and oracle_err <= IMPLICIT_ORACLE_TOL and repeat_equal):
+            raise AssertionError(f"implicit {font}: the locks or the card-vs-CPU check failed (above)")
+
+
+def _line_indices(pp, pcfg, codes: torch.Tensor) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(argmax lines, monotone lines, top-two margin) of the net on codes."""
+    from ai_font_renderer_tpu_torch.models import font_renderer, placement
+
+    with torch.inference_mode():
+        out = placement._head(font_renderer.features(pp, codes, pcfg), pp["place_w"], pp["place_b"])
+        off, col = (3, 2) if placement.head_structured(pp) else (2, 1)
+        llog = out[..., off:]
+        mono = placement.monotone_lines(llog, torch.sigmoid(out[..., col]))
+        top2 = llog.topk(2, dim=-1).values
+    return llog.argmax(-1).cpu().numpy(), mono.cpu().numpy(), (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+
+def _implicit_variants(workdir: str, card: str) -> None:
+    """8b: the decode and layout variants through the CLI in this process
+    (15 BMPs each), and the hard and monotone line indices on the card
+    against the CPU's: the argmax wherever the CPU's top-two margin exceeds
+    LINE_MARGIN, the monotone path on every string with no slot under it."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+
+    variants = (["--hard-placement"], ["--monotone-placement"], ["--baked", "4"], ["--phased", "8"],
+                ["--scale", "4"])
+    strings = TEST_STRINGS + _atlas_strings(1024, 100, seed=8)
+    codes = torch.from_numpy(encode_codes(strings, 100))
+    for font in IMPLICIT_FONTS:
+        bank, net, font_path = _implicit_paths(font)
+        for extra in variants:
+            out = os.path.join(workdir, "implicit", font, "_".join(a.lstrip("-") for a in extra))
+            t0 = time.perf_counter()
+            rc, _ = _cli(["render", "--implicit", bank, "--placement", net, "--font", font_path, "--out", out,
+                          *extra], f"implicit {font} {' '.join(extra)}")
+            bmps = sorted(os.listdir(out)) if rc == 0 else []
+            shape = read_bmp(os.path.join(out, "string_0.bmp")).shape if bmps else None
+            print(f"[implicit] {font} {' '.join(extra)}: rc {rc}, {len(bmps)} BMPs of {shape}, "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            if rc != 0 or len(bmps) != 15:
+                raise AssertionError(f"render --implicit {font} {extra}: rc {rc}, {len(bmps)} BMPs")
+        lines = {}
+        for dev in ("cuda", "cpu"):
+            _, _, _, pp, pcfg = _implicit_pair(font, dev)
+            lines[dev] = _line_indices(pp, pcfg, codes.to(dev))
+        (hard, mono, _), (hard_c, mono_c, margin) = lines["cuda"], lines["cpu"]
+        sure = margin > LINE_MARGIN
+        whole = sure.all(axis=1)
+        hard_bad = int((hard != hard_c)[sure].sum())
+        mono_bad = int((mono != mono_c)[whole].sum())
+        print(f"[implicit] {font}: line indices card vs CPU on {len(strings)} strings: argmax differs on "
+              f"{hard_bad} of {int(sure.sum())} slots past the margin ({int((~sure).sum())} under it), "
+              f"monotone on {mono_bad} slots of {int(whole.sum())} strings with no slot under it; the test "
+              f"strings' equal: argmax {np.array_equal(hard[:15], hard_c[:15])}, monotone "
+              f"{np.array_equal(mono[:15], mono_c[:15])}", flush=True)
+        if hard_bad or mono_bad or not (np.array_equal(hard[:15], hard_c[:15])
+                                        and np.array_equal(mono[:15], mono_c[:15])):
+            raise AssertionError(f"implicit {font}: line indices on the card differ from the CPU's")
+
+
+def _placement_through_kernels(card: str) -> tuple[dict, list[dict]]:
+    """8c: the committed nets with each fused attention flag against the
+    plain attention at B = 15 (the test strings) and 1024: midpoints and
+    logits within PLACEMENT_REL_TOL of the largest |plain| value, through
+    the general forward (E = 64, H = 8 is past the register-tiled kernels).
+    Then that forward alone at B = 1024 and rate 0 (serving), f32 and bf16,
+    against its plain version, timed beside the library and the bound ->
+    (the launches of the runs with the flags, the timing rows)."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import replace
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.models import placement
+    from ai_font_renderer_tpu_torch.ops.fused_attention import (
+        KEYS,
+        attention_wide_fwd,
+        fused_attention_reference,
+        kernel_takes,
+    )
+
+    batches = {15: TEST_STRINGS, 1024: _atlas_strings(1024, 100, seed=9)}
+    totals = None
+    for font in IMPLICIT_FONTS:
+        _, _, _, pp, pcfg = _implicit_pair(font, "cuda")
+        if kernel_takes(pcfg.max_length, pcfg.embedding_dim, pcfg.num_heads, torch.float32):
+            raise AssertionError(f"{font}: the register-tiled kernels take the net's shape; phase 8 expects "
+                                 "the general ones")
+        for bsz, strings in batches.items():
+            codes = torch.from_numpy(encode_codes(strings, pcfg.max_length)).cuda()
+            with torch.inference_mode():
+                want = placement.apply(pp, codes, pcfg)
+                torch.cuda.synchronize()
+                for flag in ("fused_attention", "fused_attention_v2"):
+                    _reset_counts()
+                    got = placement.apply(pp, codes, replace(pcfg, **{flag: True}))
+                    torch.cuda.synchronize()
+                    counts = _counts()
+                    totals = counts if totals is None else {k: totals[k] + counts[k] for k in totals}
+                    errs = [float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want)]
+                    print(f"[implicit] {font} net, B={bsz}, {flag}: midpoints rel err {errs[0]:.3g}, logits "
+                          f"rel err {errs[1]:.3g} (tol {PLACEMENT_REL_TOL}); launches "
+                          f"attention_wide_fwd {counts['attention_wide_fwd']}", flush=True)
+                    if max(errs) > PLACEMENT_REL_TOL or counts["attention_wide_fwd"] <= 0:
+                        raise AssertionError(f"{font} placement net with {flag} at B={bsz}: errs {errs}, {counts}")
+
+    # The forward alone at the net's shape, weights of the Montserrat net.
+    bsz, s, e, heads = 1024, pcfg.max_length, pcfg.embedding_dim, pcfg.num_heads
+    w = {k: pp[k] for k in KEYS}
+    g = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
+        got, _ = attention_wide_fwd(x, w, heads)
+        want = fused_attention_reference(x, w, heads)
+        err = float((got.float() - want.float()).abs().max())
+        if dt == torch.float32:
+            ok, tol = err <= ATTN_TOL[dt], ATTN_TOL[dt]
+        else:
+            tol = f"{WIDE_FWD_BF16_REL_TOL} of max |plain|"
+            ok = err <= WIDE_FWD_BF16_REL_TOL * float(want.float().abs().max())
+        if not ok:
+            raise AssertionError(f"general attention forward at S={s}, E={e}, H={heads} {dt}: err {err} (tol {tol})")
+        mha, _ = _attn_library(e, heads, w, dt)
+        xt = x.transpose(0, 1)
+        with torch.no_grad():
+            library_ms = time_ms(lambda: mha(xt, 0.0, False), 20)
+        bound_ms, bound_by = _bound(2 * bsz * s * e * x.element_size() + 4 * (4 * e * e + 4 * e),
+                                    bsz * (8 * s * e * e + 4 * s * s * e), _attn_peak(dt))
+        row = {
+            "shape": f"B={bsz},S={s},E={e},H={heads},{str(dt).replace('torch.', '')},dropout=0",
+            "max_abs_err": err, "tol": tol,
+            "ms": time_ms(lambda: attention_wide_fwd(x, w, heads), 20),
+            "plain_ms": time_ms(lambda: fused_attention_reference(x, w, heads), 10),
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(f"[K5/K7 general attention_wide_fwd, the placement net's shape] {json.dumps(row)} ({card})",
+              flush=True)
+        rows.append(row)
+    return totals, rows
+
+
+def _time_render(fn, runs: int = 5) -> list[float]:
+    """Seconds of each of ``runs`` calls of ``fn`` (strings to a finished
+    device tensor, a sync at the end) after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _learned_split(sp, scfg, charset, pp, pcfg, strings, font_path, baked=0, phased=0) -> dict:
+    """ms of render_learned_sheets' parts, each ending in a sync: the host
+    (font, layout, encoding, the charset's slots), the placement net (with
+    the origins and the visibility), the bake and the composite."""
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.fontgen.ttf import TrueTypeFont
+    from ai_font_renderer_tpu_torch.models import placement
+    from ai_font_renderer_tpu_torch.render import implicit_sheet as tis
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lay = tis.build_layout(TrueTypeFont.load(font_path), cell=scfg.cell, max_glyphs=pcfg.max_length)
+        codes = torch.from_numpy(encode_codes(strings, pcfg.max_length)).cuda()
+        ids, known = tis.known_slots(strings, charset, pcfg.max_length)
+        ids, known = torch.from_numpy(ids).cuda(), torch.from_numpy(known).cuda()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mids, logits = placement.apply(pp, codes, pcfg)
+        origins = tis.origins_from_midpoints(mids, lay)
+        valid = known & (torch.sigmoid(logits) > 0.5)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if phased:
+            bank = tis.bake_bank_phased(sp, scfg, lay, phases=phased)
+        elif baked:
+            bank = tis.bake_bank(sp, scfg, supersample=baked)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if phased:
+            tis.compose_phased(bank, ids, origins, valid, scfg, lay, phased, composite="matmul")
+        elif baked:
+            tis.compose_baked(bank, ids, origins, valid, scfg, lay, baked)
+        else:
+            tis.compose(sp, ids, origins, valid, scfg, lay)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    return {"host_ms": (t1 - t0) * 1e3, "net_ms": (t2 - t1) * 1e3, "bake_ms": (t3 - t2) * 1e3,
+            "composite_ms": (t4 - t3) * 1e3}
+
+
+def _implicit_rates(card: str) -> None:
+    """8d: glyphs/s (N x 100 glyph slots a run over its seconds, as phase
+    3 counts them; the median of 5) of render_learned_sheets on the
+    Montserrat pair (the structured head) exact at 256 sheets, baked 4 at
+    1024, phased 8 at 1024 and 4096, with each one's split; of
+    render_implicit_sheets phased 8 at 1024 with its pen walk; and the peak
+    device memory of the exact compose at 256 sheets."""
+    from ai_font_renderer_tpu_torch.fontgen.ttf import TrueTypeFont
+    from ai_font_renderer_tpu_torch.render import implicit_sheet as tis
+
+    sp, scfg, charset, pp, pcfg = _implicit_pair("montserrat", "cuda")
+    font_path = _implicit_paths("montserrat")[2]
+    for name, n, kw in (("exact", 256, {}), ("baked4", 1024, {"baked": 4}), ("phased8", 1024, {"phased": 8}),
+                        ("phased8", 4096, {"phased": 8})):
+        strings = _atlas_strings(n, 100, seed=10)
+        if name == "exact":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        runs = _time_render(lambda: tis.render_learned_sheets(sp, pp, strings, font_path, scfg, pcfg,
+                                                              charset=charset, **kw))
+        if name == "exact":
+            peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+            print(f"[implicit] exact compose of {n} sheets: peak device memory {peak_mib:.1f} MiB above the "
+                  f"weights ({card})", flush=True)
+        gps = sorted(n * 100 / t for t in runs)
+        split = _learned_split(sp, scfg, charset, pp, pcfg, strings, font_path, **kw)
+        print(f"[implicit] render_learned_sheets {name} N={n}: glyphs/s runs {gps}, median {gps[len(gps) // 2]}; split "
+              f"{json.dumps({k: round(v, 3) for k, v in split.items()})} ({card})", flush=True)
+    strings = _atlas_strings(1024, 100, seed=11)
+    runs = _time_render(lambda: tis.render_implicit_sheets(sp, strings, font_path, scfg, charset=charset, phased=8))
+    gps = sorted(1024 * 100 / t for t in runs)
+    t0 = time.perf_counter()
+    font = TrueTypeFont.load(font_path)
+    tis.place_glyphs(strings, font, tis.build_layout(font, cell=scfg.cell), charset=charset,
+                     kerning=tis.font_kerning(font_path, charset))
+    walk_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[implicit] render_implicit_sheets phased8 N=1024: glyphs/s runs {gps}, median {gps[len(gps) // 2]}; host pen "
+          f"walk {walk_ms:.2f} ms of it ({card})", flush=True)
+
+
+def phase_implicit(workdir: str, card: str) -> tuple[dict, list[dict]]:
+    """Phase 8: the implicit render path -> (the launches of its runs
+    through the attention kernels, the general forward's timing rows)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    _implicit_locks(card)
+    seconds["locks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _implicit_variants(workdir, card)
+    seconds["variants"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts, rows = _placement_through_kernels(card)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _implicit_rates(card)
+    seconds["rates"] = time.perf_counter() - t0
+    print(f"[implicit] seconds by check: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
+    return counts, rows
+
+
 def _kernel_entry(name, source, replaces, rows, headline, launches, shadow=False) -> dict:
     """The kernels line's entry: the row ``headline``'s numbers, or with
     ``shadow`` those of its variant that writes W's bf16 shadow (the one
@@ -2414,9 +2764,10 @@ def main() -> int:
         data_counts = timed("data and weights", phase_data, workdir, card, rates["fused"])
         decoder_counts, int8_rows = timed("decoders and int8", phase_decoders, workdir, card, ds, rates, atlas_gps)
         del ds
+        implicit_counts, implicit_rows = timed("implicit", phase_implicit, workdir, card)
     ab_counts = timed("ab_xt", phase_ab_xt)
     by_phase = {"render": render_counts, "serve": serve_counts, "train": train_counts, "data": data_counts,
-                "decoders": decoder_counts}
+                "decoders": decoder_counts, "implicit": implicit_counts}
     print(f"[launches] by phase: {json.dumps(by_phase)}", flush=True)
     launches = {k: sum(c[k] for c in by_phase.values()) for k in render_counts}
     launches["fused_dw_adamw_xt"] = ab_counts["fused_dw_adamw_xt"]
@@ -2477,7 +2828,7 @@ def main() -> int:
         ),
         _kernel_entry(
             "attention_wide_fwd (K5/K7 at other shapes, f32 and bf16)", src + "attention_wide.cu",
-            "ai_font_renderer_tpu/ops/fused_attention.py:65", wide_fwd_rows,
+            "ai_font_renderer_tpu/ops/fused_attention.py:65", wide_fwd_rows + implicit_rows,
             f"B=1024,S=100,E=64,H=4,float32,dropout={DROPOUT}", launches["attention_wide_fwd"],
         ),
         _kernel_entry(

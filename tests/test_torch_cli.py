@@ -49,10 +49,7 @@ def test_training_and_missing_weights_exit_1(argv, capsys):
     assert "device='cpu'" in out or "not found" in out
 
 
-@pytest.mark.parametrize(
-    "extra",
-    [["--implicit", "b.npz"], ["--placement", "p.npz"], ["--exported", "a.hlo"]],
-)
+@pytest.mark.parametrize("extra", [["--exported", "a.hlo"]])
 def test_later_slice_flags_exit_1(weights, extra, tmp_path, capsys):
     rc = cli.main(["render", "HI", "--weights", weights, "--out", str(tmp_path), "--device", "cpu", *extra])
     assert rc == 1

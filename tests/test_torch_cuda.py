@@ -1145,3 +1145,68 @@ def test_int8_render_atlas_on_the_card_matches_the_cpu(cuda):
     assert got.shape == (96, 80, 240) and bool(torch.isfinite(got).all())
     err = (got - want).abs().amax(dim=(1, 2))
     assert float(err.max()) <= 1e-3 and float(err.median()) <= 1e-6
+
+
+def _implicit_pair(font, device):
+    import os
+
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config, load_siren
+
+    art = os.path.join(os.path.dirname(__file__), "..", "artifacts", font)
+    sp, scfg, charset = load_siren(os.path.join(art, "siren_finetuned.npz"), device=device)
+    pp, pcfg = load_params_with_config(os.path.join(art, "placement_finetuned.npz"), device=device)
+    return sp, scfg, charset, pp, pcfg
+
+
+@pytest.mark.parametrize("font", ["firacode", "montserrat"])
+@pytest.mark.parametrize("flag", ["fused_attention", "fused_attention_v2"])
+def test_placement_net_through_the_attention_kernels(cuda, flag, font):
+    """The committed placement nets (E = 64, H = 8: the general attention
+    forward) with a fused attention flag against the plain attention:
+    midpoints and logits within 1e-4 of the largest |plain| value."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import replace
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.models import placement
+
+    _, _, _, pp, pcfg = _implicit_pair(font, cuda)
+    codes = torch.from_numpy(encode_codes(TEST_STRINGS * 4, 100)).to(cuda)
+    before = attention_wide_fwd.launches
+    with torch.inference_mode():
+        want = placement.apply(pp, codes, pcfg)
+        got = placement.apply(pp, codes, replace(pcfg, **{flag: True}))
+    assert attention_wide_fwd.launches > before
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_implicit_composites_are_deterministic_on_the_card(cuda):
+    """The scatter composite (exact compose) and the one-hot products
+    (phased) give the same bits on two renders."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import MONTSERRAT_PATH
+    from ai_font_renderer_tpu_torch.render.implicit_sheet import render_implicit_sheets, render_learned_sheets
+
+    sp, scfg, charset, pp, pcfg = _implicit_pair("montserrat", cuda)
+    for kw in ({}, {"phased": 8}):
+        a = render_learned_sheets(sp, pp, TEST_STRINGS, MONTSERRAT_PATH, scfg, pcfg, charset=charset, **kw)
+        b = render_learned_sheets(sp, pp, TEST_STRINGS, MONTSERRAT_PATH, scfg, pcfg, charset=charset, **kw)
+        assert torch.equal(a, b), kw
+    a = render_implicit_sheets(sp, TEST_STRINGS, MONTSERRAT_PATH, scfg, charset=charset)
+    assert torch.equal(a, render_implicit_sheets(sp, TEST_STRINGS, MONTSERRAT_PATH, scfg, charset=charset))
+
+
+def test_learned_sheets_on_the_card_match_the_cpu(cuda):
+    """The Montserrat pair's soft-decode sheets on the card against the CPU,
+    within tests/test_torch_implicit.py's bound against the JAX package
+    (5e-3: the soft structured decode is ill-conditioned where it hedges)."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import MONTSERRAT_PATH
+    from ai_font_renderer_tpu_torch.render.implicit_sheet import render_learned_sheets
+
+    out = []
+    for dev in (cuda, "cpu"):
+        sp, scfg, charset, pp, pcfg = _implicit_pair("montserrat", dev)
+        out.append(render_learned_sheets(sp, pp, TEST_STRINGS, MONTSERRAT_PATH, scfg, pcfg, charset=charset).cpu())
+    assert out[0].shape == (15, 80, 240)
+    assert float((out[0] - out[1]).abs().max()) <= 5e-3
