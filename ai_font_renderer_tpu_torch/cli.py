@@ -19,6 +19,13 @@ evaluate weights.
                      ``--placement NET`` at the learned placement net's
                      (the fully neural path), at any ``--scale``;
   * ``serve``        run the batched render server (``--int8`` as render);
+  * ``export``       write the render function with its weights as one
+                     ``torch.export`` artifact (``.pt2``): the flagship
+                     (``--weights``, ``--int8``, ``--fast``) or the fully
+                     neural pipeline (``--placement NET --implicit BANK``),
+                     its kernels (``--kernels``) as operators in the graph;
+                     ``render --exported`` and ``serve --exported`` run one
+                     with no weights file;
   * ``fontgen``      write the dataset in the reference's file format:
                      ``data.txt``, ``1.bmp``..``N.bmp`` and
                      ``dataset_metadata.txt``;
@@ -42,7 +49,7 @@ import datetime
 import os
 import sys
 
-from .config import FIRACODE_PATH, SheetSpec, replace
+from .config import FIRACODE_PATH, ModelConfig, SheetSpec, replace
 
 # Curated eval strings: repeated wide/narrow chars, multi-space runs, the
 # exact-length boundary, the alphabet both ways, all spaces.
@@ -68,10 +75,8 @@ _LATER = (
     "{flag} is not ported to the PyTorch/CUDA package yet; it comes with a later slice "
     "(ROADMAP queue 1, item {item})."
 )
-# The ROADMAP item that brings each refused option or subcommand.
+# The ROADMAP item that brings each refused subcommand.
 _ITEM = {
-    "--exported": "16",
-    "export": "16",
     "train-placement": "14",
 }
 _KERNELS = {
@@ -98,14 +103,6 @@ def parse_tcp(value: str) -> tuple[str, int] | None:
     if host.startswith("[") and host.endswith("]"):
         host = host[1:-1]
     return host, int(port)
-
-
-def _refuse_later(args, flags) -> bool:
-    for flag in flags:
-        if getattr(args, flag.lstrip("-").replace("-", "_"), None):
-            print(_LATER.format(flag=flag, item=_ITEM[flag]))
-            return True
-    return False
 
 
 def _load(args):
@@ -224,8 +221,8 @@ def cmd_render(args) -> int:
         return 0
     if args.implicit:
         return _render_implicit(args)
-    if _refuse_later(args, ("--exported",)):
-        return 1
+    if args.exported:
+        return _render_exported(args)
     loaded = _load(args)
     if loaded is None:
         return 1
@@ -242,24 +239,161 @@ def cmd_render(args) -> int:
     return 0
 
 
+def _load_artifact(args):
+    """The artifact ``args.exported`` on ``args.device``, or None after
+    printing why not."""
+    from .device import resolve_device
+    from .utils.export import load_exported
+
+    if not os.path.exists(args.exported):
+        print(f"Error: exported artifact not found: {args.exported}")
+        return None
+    try:
+        return load_exported(args.exported, resolve_device(args.device))
+    except (RuntimeError, ValueError) as e:
+        print(f"Error: {e}")
+        return None
+
+
+def _render_exported(args) -> int:
+    """``render --exported A``: the strings through the artifact alone, no
+    weights file."""
+    from .fontgen.bmp import write_bmp
+    from .utils.export import render_exported
+
+    artifact = _load_artifact(args)
+    if artifact is None:
+        return 1
+    sheets = render_exported(artifact, args.strings or TEST_STRINGS)
+    os.makedirs(args.out, exist_ok=True)
+    for i, sheet in enumerate(sheets):
+        write_bmp(os.path.join(args.out, f"string_{i}.bmp"), sheet)
+    print(f"Saved {len(sheets)} exported-artifact renders to {args.out}/")
+    return 0
+
+
+def _export_kernels(value: str) -> dict:
+    """``--kernels`` of ``export``: "none", or a comma-separated subset of
+    output (K1), attention (K5) and attention_v2 (K7) -> ModelConfig flags."""
+    flags = {"output": "use_pallas_output", "attention": "fused_attention",
+             "attention_v2": "fused_attention_v2"}
+    names = [n.strip() for n in value.split(",") if n.strip() and n.strip() != "none"]
+    unknown = [n for n in names if n not in flags]
+    if unknown:
+        raise ValueError(f"--kernels {value}: unknown {unknown}; take none or a comma-separated "
+                         f"subset of {', '.join(flags)}")
+    return {flags[n]: True for n in names}
+
+
+def cmd_export(args) -> int:
+    """Write a self-contained torch.export render artifact (utils/export.py)."""
+    from .device import resolve_device
+    from .utils.checkpoint import load_params_with_config, load_siren
+    from .utils.export import check_platforms, export_neural_render, export_render
+
+    try:
+        kernels = _export_kernels(args.kernels)
+        platforms = check_platforms(p.strip() for p in args.platforms.split(",") if p.strip())
+    except ValueError as e:
+        print(f"Error: {e}")
+        return 1
+    if args.placement:
+        # The fully neural pipeline: placement net + SIREN bank +
+        # composition, one artifact, the flagship's contract.
+        if args.int8 or args.fast:
+            print(
+                "Warning: --int8/--fast apply only to the flagship export; "
+                "ignored for --placement artifacts"
+            )
+        if not args.implicit:
+            print("Error: --placement export requires --implicit SIREN_NPZ")
+            return 1
+        if "use_pallas_output" in kernels:
+            print("Error: --kernels output: the placement net has no output projection")
+            return 1
+        for path in (args.placement, args.implicit):
+            if not os.path.exists(path):
+                print(f"Error: weights file not found: {path}")
+                return 1
+        try:
+            device = resolve_device(args.device)
+        except (RuntimeError, ValueError) as e:
+            print(f"Error: {e}")
+            return 1
+        _warn_bank_font_mismatch(args.implicit, args.font)
+        pp, pcfg = load_params_with_config(args.placement, device=device)
+        sp, scfg, charset = load_siren(args.implicit, device=device)
+        n = export_neural_render(
+            pp, replace(pcfg, **kernels), sp, scfg, charset, args.font, args.out,
+            platforms=platforms, scale=args.scale, hard=args.hard_placement,
+            monotone=args.monotone_placement,
+        )
+        print(
+            f"Exported neural render fn to {args.out} ({n / 1e6:.1f} MB, "
+            f"platforms {','.join(platforms)}, batch dim symbolic)"
+        )
+        return 0
+
+    loaded = _load(args)
+    if loaded is None:
+        return 1
+    params, mcfg = loaded
+    if args.int8:
+        from .ops.quantized import quantize_params
+
+        try:
+            params = quantize_params(params)
+        except ValueError as e:
+            print(f"Error: {e}")
+            return 1
+    n = export_render(params, replace(mcfg, **kernels), args.out, platforms=platforms)
+    print(
+        f"Exported render fn to {args.out} ({n / 1e6:.1f} MB, "
+        f"platforms {','.join(platforms)}, batch dim symbolic)"
+    )
+    return 0
+
+
 def cmd_serve(args) -> int:
     """Run the batched render server until interrupted."""
     import time
 
     from .render.server import RenderServer
+    from .utils.export import render_exported_u8
 
-    if _refuse_later(args, ("--exported",)):
-        return 1
     tcp = None
     if args.tcp:
         tcp = parse_tcp(args.tcp)
         if tcp is None:
             print(f"Error: --tcp expects HOST:PORT, got {args.tcp!r}")
             return 1
-    loaded = _load(args)
-    if loaded is None:
-        return 1
-    params, mcfg = loaded
+    render_fn = None
+    if args.exported:
+        # The artifact is the whole deployment: no weights file; the wire
+        # format's sheet size comes from its contract.
+        if args.int8 or args.fast:
+            print(
+                "Warning: --int8/--fast have no effect with --exported — "
+                "the artifact serves whatever precision was baked in "
+                "(use `export --int8/--fast` instead)"
+            )
+        artifact = _load_artifact(args)
+        if artifact is None:
+            return 1
+        params = None
+        mcfg = replace(
+            ModelConfig(), max_length=artifact.max_length, sheet_height=artifact.height,
+            sheet_width=artifact.width,
+        )
+
+        def render_fn(strings):
+            return render_exported_u8(artifact, strings)
+
+    else:
+        loaded = _load(args)
+        if loaded is None:
+            return 1
+        params, mcfg = loaded
     try:
         server = RenderServer(
             params,
@@ -267,6 +401,7 @@ def cmd_serve(args) -> int:
             socket_path=args.socket,
             batch_size=args.batch_size,
             int8=args.int8,
+            render_fn=render_fn,
             auth_token=args.auth_token or os.environ.get("AFR_AUTH_TOKEN"),
             tcp=tcp,
             tls_cert=args.tls_cert,
@@ -466,17 +601,44 @@ def _subcommands(argv: list[str]) -> int:
     p_ren.add_argument("--phased", type=int, default=0, metavar="P",
                        help="with --implicit: bake the bank at PxP subpixel phases and place whole "
                        "blocks by one-hot products; positions quantize to 1/P px (0: exact)")
-    # Options of later slices are accepted so that they fail with a clear
-    # message rather than a usage error.
-    for p in (p_ren, p_srv):
+    p_exp = sub.add_parser("export", help="serialize the render function to a torch.export artifact "
+                           "(weights baked in, symbolic batch dim)")
+    p_exp.add_argument("--weights", default="font_renderer.npz")
+    p_exp.add_argument("--out", default="font_renderer.pt2")
+    p_exp.add_argument("--platforms", default="cpu,cuda",
+                       help="comma-separated platforms the artifact may be loaded onto (default cpu,cuda)")
+    p_exp.add_argument("--fast", action="store_true", help="bake the bf16-frontend fast profile")
+    p_exp.add_argument("--kernels", default="none",
+                       help="none (default), or a comma-separated subset of output (K1), attention (K5) "
+                       "and attention_v2 (K7): the kernels the artifact's graph calls as operators")
+    p_exp.add_argument("--implicit", metavar="SIREN_NPZ", default=None,
+                       help="with --placement: the SIREN glyph bank to bake into a fully neural artifact")
+    p_exp.add_argument("--placement", metavar="PLACEMENT_NPZ", default=None,
+                       help="export the fully neural pipeline instead of the flagship: placement net + "
+                       "--implicit SIREN bank + composition, the same codes->uint8 contract")
+    p_exp.add_argument("--font", default=FIRACODE_PATH,
+                       help="font consulted at export time for the static cell geometry of --placement "
+                       "artifacts (never shipped inside)")
+    p_exp.add_argument("--scale", type=float, default=1.0,
+                       help="output resolution multiplier baked into a --placement artifact")
+    p_exp.add_argument("--hard-placement", action="store_true",
+                       help="bake the discrete placement decode (argmax line)")
+    p_exp.add_argument("--monotone-placement", action="store_true",
+                       help="bake the Viterbi monotone-break placement decode")
+    for p in (p_ren, p_srv, p_exp):
         p.add_argument("--int8", action="store_true",
                        help="the linear head as an int8 x int8 product (per-channel weight scales, "
                        "dynamic per-row activation scales)")
-        p.add_argument("--exported", default=None, help="not ported yet")
-    for p in (p_ren, p_srv, p_gen, p_ev):
+    for p in (p_ren, p_srv):
+        p.add_argument("--exported", default=None, metavar="ARTIFACT",
+                       help="render from a self-contained torch.export artifact (export) instead of "
+                       "weights: no weights file or model config needed")
+    for p in (p_ren, p_srv, p_gen, p_ev, p_exp):
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    return {"render": cmd_render, "serve": cmd_serve, "fontgen": cmd_fontgen, "eval": cmd_eval}[args.cmd](args)
+    commands = {"render": cmd_render, "serve": cmd_serve, "fontgen": cmd_fontgen, "eval": cmd_eval,
+                "export": cmd_export}
+    return commands[args.cmd](args)
 
 
 def run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=False, device=None):
@@ -536,7 +698,7 @@ def _train_parser() -> argparse.ArgumentParser:
 def _configs(args):
     """(mcfg, tcfg) from the training flags, as the JAX package's CLI
     builds them."""
-    from .config import ModelConfig, TrainConfig
+    from .config import TrainConfig
 
     mcfg, tcfg = ModelConfig(), TrainConfig()
     decoder = args.decoder or mcfg.decoder
@@ -590,9 +752,9 @@ def _refuse_later_training(args) -> bool:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] in ("render", "serve", "fontgen", "eval"):
+    if argv and argv[0] in ("render", "serve", "fontgen", "eval", "export"):
         return _subcommands(argv)
-    if argv and argv[0] in ("export", "train-placement"):
+    if argv and argv[0] == "train-placement":
         print(_LATER.format(flag=argv[0], item=_ITEM[argv[0]]))
         return 1
 

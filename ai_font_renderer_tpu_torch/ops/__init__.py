@@ -1,6 +1,11 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version; and ``quantized``, int8 serving on cuBLASLt's int8 product, which
-the JAX package computes with XLA rather than a Pallas kernel."""
+the JAX package computes with XLA rather than a Pallas kernel.
+
+Importing this package registers the ``torch.library`` operators that an
+exported program's graph calls (``afr::fused_output_fwd``,
+``afr::attention_fwd``, ``afr::int8_product``); it imports nothing else of
+the port."""
 
 from .fused_attention import (
     attention_mma_attributes,
@@ -42,6 +47,7 @@ from .fused_output import (
     round_bf16,
     round_bf16_reference,
 )
+from .quantized import int8_product
 
 __all__ = [
     "FusedOutputFunction",
@@ -76,6 +82,7 @@ __all__ = [
     "gemm_bf16_mn_reference",
     "gemm_bf16_tn",
     "gemm_bf16_tn_reference",
+    "int8_product",
     "round_bf16",
     "round_bf16_reference",
 ]

@@ -39,12 +39,21 @@ count: ``fused_attention.launches`` (K5), ``fused_attention2.launches``
 and ``attention_mma_bwd.launches`` count the bf16 ones among them at the
 register-tiled shapes, ``attention_wide_fwd.launches`` and
 ``attention_wide_bwd.launches`` those at every other shape.
+
+The forward (K5 or K7, whichever build) is the ``torch.library`` operator
+``afr::attention_fwd``, with a fake implementation that gives its outputs'
+shapes: both entry points call it, through the autograd function when a
+gradient is wanted and alone otherwise, and so does a graph that
+``torch.export`` traced (utils/export.py). It picks kernel or plain version
+by x's device when it runs, so its launches count inside an exported
+program too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -589,10 +598,38 @@ def fused_attention2_backward(x, g, weights, heads: int, dropout_rate: float = 0
 
 def _forward(x, weights, heads, rate, seed, stored):
     """(out, the uint8 mask when ``stored`` and rate > 0, else None): K5 or
-    K7 on a CUDA tensor, the plain version on a CPU tensor."""
+    K7 on a CUDA tensor, the plain version on a CPU tensor, through the
+    operator ``afr::attention_fwd``."""
+    out, mask = torch.ops.afr.attention_fwd(x, *(weights[k] for k in KEYS), heads, rate, seed, stored)
+    return out, mask if _mode(rate, stored) == 2 else None
+
+
+@torch.library.custom_op("afr::attention_fwd", mutates_args=())
+def _attention_fwd_op(
+    x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
+    bq: torch.Tensor, bk: torch.Tensor, bv: torch.Tensor, bo: torch.Tensor,
+    heads: int, rate: float, seed: Optional[torch.Tensor], store_mask: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The attention forward as an operator, as an exported graph calls it:
+    K7 with ``store_mask``, else K5 (counted on ``fused_attention2.launches``
+    or ``fused_attention.launches``) on a CUDA tensor, through the kernel
+    that ``kernel_takes`` picks; the plain version on a CPU tensor. Returns
+    (out, mask): the stored uint8 mask [B, H, S, S] when ``store_mask`` and
+    rate > 0, else an empty uint8 tensor (an operator returns no None)."""
+    weights = dict(zip(KEYS, (wq, wk, wv, wo, bq, bk, bv, bo)))
     if x.device.type != "cpu":
-        return _launch_fwd(x, weights, heads, rate, seed, stored, fused_attention2 if stored else fused_attention)
-    return _plain_forward(x, weights, heads, rate, seed, stored)
+        entry = fused_attention2 if store_mask else fused_attention
+        out, mask = _launch_fwd(x, weights, heads, rate, seed, store_mask, entry)
+    else:
+        out, mask = _plain_forward(x, weights, heads, rate, seed, store_mask)
+    return out, x.new_empty((0,), dtype=torch.uint8) if mask is None else mask
+
+
+@_attention_fwd_op.register_fake
+def _(x, wq, wk, wv, wo, bq, bk, bv, bo, heads, rate, seed, store_mask):
+    B, S, _ = x.shape
+    mask_shape = (B, heads, S, S) if _mode(rate, store_mask) == 2 else (0,)
+    return torch.empty_like(x), x.new_empty(mask_shape, dtype=torch.uint8)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -624,7 +661,12 @@ def _apply(x, weights, heads, dropout_rate, seed, stored):
     _check_seed(seed, x, dropout_rate)
     x, rate = x.contiguous(), float(dropout_rate)
     seed = seed if rate > 0.0 else None
-    return _FusedAttention.apply(x, seed, rate, heads, stored, *(weights[k] for k in KEYS))
+    w = [weights[k] for k in KEYS]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w)):
+        return _FusedAttention.apply(x, seed, rate, heads, stored, *w)
+    # No gradient wanted (inference, or a tracer such as torch.export's):
+    # the forward operator alone.
+    return _forward(x, dict(zip(KEYS, w)), heads, rate, seed, stored)
 
 
 def fused_attention(x: torch.Tensor, weights, heads: int, dropout_rate: float = 0.0, seed=None) -> torch.Tensor:

@@ -44,6 +44,13 @@ call; gm16 in K2, x16 and gm16 in K3; three in a forward and backward with a
 new W) and the GEMMs on ``gemm_bf16_bias_clamp.launches``,
 ``gemm_bf16_tn.launches`` and ``gemm_bf16_mn.launches``. The shadow counts
 its rebuilds on ``bf16_shadow.builds``.
+
+K1's forward is also the ``torch.library`` operator ``afr::fused_output_fwd``
+(x, W's shadow, b), with a fake implementation that gives its outputs'
+shapes: ``_k1`` calls it, and so does a graph that ``torch.export`` traced
+(utils/export.py), which holds W's shadow as a buffer. The operator picks
+kernel or plain version by its tensors' device when it runs, so its launches
+count inside an exported program too.
 """
 
 from __future__ import annotations
@@ -182,7 +189,8 @@ def fused_output_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
 
 
 def _k1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tuple:
-    """K1 and its operands: (out, x16, w16)."""
+    """K1 and its operands: (out, x16, w16), through the operator
+    ``afr::fused_output_fwd`` on W's shadow."""
     if x.dim() != 2 or w.dim() != 2 or b.dim() != 1:
         raise ValueError(f"expected x [M,K], w [K,N], b [N]; got {x.shape}, {w.shape}, {b.shape}")
     m, k = x.shape
@@ -194,12 +202,38 @@ def _k1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tuple:
     elif (tuple(w.shape), tuple(b.shape)) != (shapes["w"], shapes["b"]):
         raise ValueError(f"fused_output: shape mismatch, x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}")
-    x16, w16 = round_bf16(x), bf16_shadow(w)
+    w16 = bf16_shadow(w)
+    out, x16 = torch.ops.afr.fused_output_fwd(x, w16, b)
+    return out, x16, w16
+
+
+@torch.library.custom_op("afr::fused_output_fwd", mutates_args=())
+def _fused_output_fwd_op(x: torch.Tensor, w16: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as an operator, as an exported graph calls it: x [M, K] float32,
+    w16 W's bf16 shadow [K, padded_width(N)], b [N] float32 -> (out [M, N]
+    float32, x16 [M, padded_width(K)] bfloat16, x's operand, which the
+    autograd backward's K3 reads). On the card the operand pass for x and
+    the GEMM with bias and clamp, counted on ``fused_output.launches``; on
+    CPU tensors their plain versions. It takes the shadow, not W: the
+    shadow's table keys on a tensor's identity and version, which mean
+    nothing to a tracer's fake tensors."""
+    m, k = x.shape
+    n = b.shape[0]
+    if tuple(w16.shape) != (k, padded_width(n)) or w16.dtype != torch.bfloat16:
+        raise ValueError(f"fused_output: w16 must be W's bf16 shadow [{k}, {padded_width(n)}] for x "
+                         f"{tuple(x.shape)} and b {tuple(b.shape)}, got {w16.dtype} {tuple(w16.shape)}")
+    x16 = round_bf16(x)
     # Contiguous also where N is not a multiple of 4: K2 reads out.
     out = gemm_bf16_bias_clamp(x16, w16, b, n).contiguous()
     if x.device.type == "cuda" and m:
         fused_output.launches += 1
-    return out, x16, w16
+    return out, x16
+
+
+@_fused_output_fwd_op.register_fake
+def _(x, w16, b):
+    m, k = x.shape
+    return x.new_empty((m, b.shape[0])), x.new_empty((m, padded_width(k)), dtype=torch.bfloat16)
 
 
 def bf16_shadow(w: torch.Tensor) -> torch.Tensor:

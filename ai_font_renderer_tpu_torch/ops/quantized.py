@@ -111,7 +111,14 @@ def _col_major(w_q: torch.Tensor) -> torch.Tensor:
 def int8_product(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """a_q [M, K] int8 @ w_q [K, N] int8 -> int32 [M, N]: ``torch._int_mm``
     on the card (K and N multiples of 8; fewer than 17 rows padded with
-    zero rows), the plain version on CPU tensors."""
+    zero rows), the plain version on CPU tensors. Through the operator
+    ``afr::int8_product``, which picks one or the other when it runs, so a
+    graph traced by ``torch.export`` holds no row count's branch."""
+    return torch.ops.afr.int8_product(a_q, w_q)
+
+
+@torch.library.custom_op("afr::int8_product", mutates_args=())
+def _int8_product_op(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     if a_q.device.type == "cpu":
         return int8_product_reference(a_q, w_q)
     m, k = a_q.shape
@@ -125,6 +132,11 @@ def int8_product(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     acc = torch._int_mm(a, _col_major(w_q))
     int8_product.launches += 1
     return acc[:m]
+
+
+@_int8_product_op.register_fake
+def _(a_q, w_q):
+    return a_q.new_empty((a_q.shape[0], w_q.shape[1]), dtype=torch.int32)
 
 
 int8_product.launches = 0

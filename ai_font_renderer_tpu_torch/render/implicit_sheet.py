@@ -193,6 +193,25 @@ def _composite(cov, px, py, u, v, valid, lay: ImplicitLayout) -> torch.Tensor:
     return (1.0 - ink.reshape(N, H, W)).clamp(0.0, 1.0)
 
 
+def compose_chunk_size(glyphs: int, lay: ImplicitLayout) -> int:
+    """Most sheets of ``glyphs`` slots one SIREN evaluation of
+    :func:`compose` takes: as many as hold at most COMPOSE_POINTS window
+    points (one at least)."""
+    return max(1, COMPOSE_POINTS // (glyphs * lay.win * lay.win))
+
+
+def compose_all(params, char_ids, origins, valid, cfg: siren.SirenConfig, lay: ImplicitLayout) -> torch.Tensor:
+    """:func:`compose` of the whole batch in one SIREN evaluation, whatever
+    its size (an exported program's body, which runs on a batch it does not
+    know; its callers feed it at most :func:`compose_chunk_size` sheets)."""
+    n, G = char_ids.shape
+    win = lay.win
+    px, py, u, v = _window_geometry(origins, lay)
+    coords = torch.stack([u, v], dim=-1).reshape(n * G, win * win, 2)
+    cov = siren.apply(params, char_ids.reshape(n * G), coords, cfg)
+    return _composite(cov.reshape(n, G, win, win), px, py, u, v, valid, lay)
+
+
 def compose(params, char_ids, origins, valid, cfg: siren.SirenConfig, lay: ImplicitLayout) -> torch.Tensor:
     """Evaluate the bank at every pixel of every slot's window and add the
     windows up: char_ids [N, G], origins [N, G, 2] f32, valid [N, G] bool ->
@@ -200,17 +219,13 @@ def compose(params, char_ids, origins, valid, cfg: siren.SirenConfig, lay: Impli
     valid or not. Sheets go through the bank in chunks of at most
     COMPOSE_POINTS window points; each sheet's result does not depend on
     the chunk it lands in."""
-    N, G = char_ids.shape
-    win = lay.win
-    per_chunk = max(1, COMPOSE_POINTS // (G * win * win))
-    out = []
-    for n0 in range(0, N, per_chunk):
-        ids, org, val = char_ids[n0 : n0 + per_chunk], origins[n0 : n0 + per_chunk], valid[n0 : n0 + per_chunk]
-        n = ids.shape[0]
-        px, py, u, v = _window_geometry(org, lay)
-        coords = torch.stack([u, v], dim=-1).reshape(n * G, win * win, 2)
-        cov = siren.apply(params, ids.reshape(n * G), coords, cfg)
-        out.append(_composite(cov.reshape(n, G, win, win), px, py, u, v, val, lay))
+    N = char_ids.shape[0]
+    per_chunk = compose_chunk_size(char_ids.shape[1], lay)
+    out = [
+        compose_all(params, char_ids[n0 : n0 + per_chunk], origins[n0 : n0 + per_chunk],
+                    valid[n0 : n0 + per_chunk], cfg, lay)
+        for n0 in range(0, N, per_chunk)
+    ]
     if not out:
         return torch.ones((0, lay.height, lay.width), device=origins.device)
     return torch.cat(out)

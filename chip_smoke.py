@@ -114,11 +114,30 @@ Phases, each of which raises on failure, each with its seconds:
    256 sheets, baked 4 at 1024, phased 8 at 1024 and 4096, each split into
    host, net, bake and composite) and of the engine-layout phased render
    at 1024, and the exact compose's peak device memory.
-9. One JSON line listing every kernel (K1-K9, the operand pass, the
+9. Export (utils/export.py, the CLI's `export`): (a) phase 3's weights
+   exported with K1 and the f32 K5 as operators in the graph, loaded onto
+   the card: the 15 test strings u8-equal to the direct render (and
+   `render --exported`'s BMPs within a gray level of phase 3's), the same
+   weights exported with no kernel (f32 W), batches 1, 15, 64 and 1024
+   from the one artifact, each one launch of K1 and of the f32 K5 kernel,
+   the 4096-sheet atlas (codes encoded once) in glyphs/s through the
+   artifact and through the same ops eagerly, in turns, each profiled
+   once, beside phase 3's, the artifacts' MB and their export and load
+   seconds; (b) phase 5's
+   weights exported in int8, u8-equal to the direct int8 render; phase
+   4's serve config (bf16 frontend, K1, K7) exported and served by `serve
+   --exported` in a subprocess, phase 4's requests byte-equal to
+   render_exported, latencies beside phase 4's; (c) both committed pairs
+   exported soft, FiraCode also with --monotone-placement and with the
+   net's attention through the general K5 forward: the test strings
+   u8-equal to the direct card render, the soft ones within
+   golden_mse.json; (d) the standalone runner in a subprocess on the
+   card, its BMPs equal to `render --exported`'s.
+10. One JSON line listing every kernel (K1-K9, the operand pass, the
    GEMMs of K2 and K3, the bf16 attention forward and backward on
    tensor cores, and the general attention forward and backward) with its
    launches on the
-   main paths (phases 3-8 and the K4/K9 A/B; counts are set to 0
+   main paths (phases 3-9 and the K4/K9 A/B; counts are set to 0
    just before each drive and read just after), its error and its times.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
@@ -1172,29 +1191,33 @@ def _atlas_strings(n: int, length: int, seed: int = 0) -> list[str]:
 def _profile_atlas(params, strings, mcfg) -> None:
     """Where one atlas render spends its time: the host's string encoding,
     the wall time, and the device's kernel time by kernel (torch.profiler)."""
-    from torch.autograd import DeviceType
-
     from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
     from ai_font_renderer_tpu_torch.render import render_atlas
 
     t0 = time.perf_counter()
     encode_codes(strings, mcfg.max_length)
     encode_ms = (time.perf_counter() - t0) * 1e3
+    _profile_fn(f"atlas {len(strings)} (host encode {encode_ms:.2f} ms)", lambda: render_atlas(params, strings, mcfg),
+                top=6)
+
+
+def _profile_fn(tag: str, fn, top: int = 5) -> None:
+    """One profiled call of ``fn``, ending in a sync: its wall time, the
+    device's kernel time and busy share, and the kernels that took most."""
+    from torch.autograd import DeviceType
+
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        render_atlas(params, strings, mcfg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[profile] atlas 4096: wall {wall_ms:.2f} ms (profiled), device kernels "
-          f"{busy_ms:.2f} ms, busy share {busy_ms / wall_ms:.3f}, host encode {encode_ms:.2f} ms",
-          flush=True)
-    for e in top:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}",
-              flush=True)
+    print(f"[profile] {tag}: wall {wall_ms:.2f} ms (profiled), device kernels {busy_ms:.2f} ms, busy share "
+          f"{busy_ms / wall_ms:.3f}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}", flush=True)
 
 
 def _render_test_strings(params, mcfg, out_dir: str, tag: str) -> None:
@@ -1359,7 +1382,7 @@ def _serve_once(params, sock: str, int8: bool = False) -> tuple[dict, dict, dict
     return replies, latency_ms, stalls
 
 
-def phase_serve(params, workdir: str) -> dict:
+def phase_serve(params, workdir: str) -> tuple[dict, dict]:
     from ai_font_renderer_tpu_torch.render import render_batch_u8_async
 
     _reset_counts()
@@ -1382,7 +1405,7 @@ def phase_serve(params, workdir: str) -> dict:
             raise AssertionError(f"serve never launched {name}: {counts}")
     print(f"[serve] bf16 attention forward on tensor cores launched {counts['attention_mma_fwd']} times",
           flush=True)
-    return counts
+    return counts, latency_ms
 
 
 def _steps_per_s(state, ds, batch_idx, mcfg, tcfg, steps: int = 8) -> float:
@@ -2697,6 +2720,374 @@ def phase_implicit(workdir: str, card: str) -> tuple[dict, list[dict]]:
     return counts, rows
 
 
+# Phase 9: the deployment artifacts (utils/export.py). An artifact runs the
+# operators and ops of the direct render in the same order on the same
+# device, so its uint8 sheets equal the direct render's bit for bit; the
+# BMPs that `render --exported` writes round those u8 values, phase 3's
+# BMPs the f32 sheets in f64, so a value within an f32 rounding of a half
+# step may land one gray level away.
+EXPORT_BATCHES = (1, 15, 64, 1024)
+
+
+def _export(argv: list[str], tag: str) -> tuple[str, float, float]:
+    """``export`` through the CLI in this process -> (artifact path,
+    seconds, MB)."""
+    out = argv[argv.index("--out") + 1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, _ = _cli(["export", *argv], tag)
+    seconds = time.perf_counter() - t0
+    if rc != 0 or not os.path.exists(out):
+        raise AssertionError(f"{tag}: export exited {rc}")
+    return out, seconds, os.path.getsize(out) / 1e6
+
+
+def _load_artifact(path: str):
+    """(the artifact on the card, seconds to load it)."""
+    from ai_font_renderer_tpu_torch.utils.export import load_exported
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    artifact = load_exported(path, "cuda")
+    torch.cuda.synchronize()
+    return artifact, time.perf_counter() - t0
+
+
+def _u8_equal(tag: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if got.shape != want.shape or got.dtype != torch.uint8 or not torch.equal(got, want):
+        diff = int((got.int() - want.int()).abs().max()) if got.shape == want.shape else None
+        raise AssertionError(f"{tag}: exported u8 sheets {tuple(got.shape)} differ from the direct render "
+                             f"{tuple(want.shape)} (max {diff})")
+
+
+def _exported_flagship(workdir: str, card: str, atlas_gps: float) -> tuple[dict, str]:
+    """9a: phase 3's weights (K1 + f32 K5) through `export`, loaded onto the
+    card: the test strings u8-equal to the direct render and `render
+    --exported`'s BMPs beside phase 3's; the same weights with no kernel
+    (f32 W); batches 1, 15, 64 and 1024 from the one artifact, each one
+    launch of K1 and of the f32 K5 kernel; the 4096-sheet atlas in glyphs/s
+    through the artifact and through the same ops eagerly, in turns, beside
+    phase 3's -> (launches, path)."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.render import render_atlas, render_batch_u8_async
+    from ai_font_renderer_tpu_torch.render.render import _forward
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config
+    from ai_font_renderer_tpu_torch.utils.export import render_exported_u8
+
+    cfg = ModelConfig(use_pallas_output=True, fused_attention=True)
+    weights = os.path.join(workdir, "font_renderer.npz")
+    path, export_s, mb = _export(["--weights", weights, "--out", os.path.join(workdir, "flagship.pt2"),
+                                  "--kernels", "output,attention"], "export flagship")
+    artifact, load_s = _load_artifact(path)
+    params, _ = load_params_with_config(weights, base=cfg, device="cuda")
+    print(f"[export] flagship (K1 + f32 K5): {mb:.1f} MB (W's bf16 shadow in W's place), export "
+          f"{export_s:.2f} s, load onto the card {load_s:.2f} s, operators {list(artifact.operators)} ({card})",
+          flush=True)
+    if artifact.operators != ("afr::attention_fwd", "afr::fused_output_fwd") or \
+            (artifact.max_length, artifact.height, artifact.width) != (100, 80, 240):
+        raise AssertionError(f"flagship artifact: operators {artifact.operators}, contract "
+                             f"{(artifact.max_length, artifact.height, artifact.width)}")
+
+    # The same weights with no kernel: f32 W, as the JAX artifact holds it.
+    plain, plain_s, plain_mb = _export(["--weights", weights, "--out", os.path.join(workdir, "plain.pt2")],
+                                       "export plain")
+    plain, plain_load_s = _load_artifact(plain)
+    _u8_equal("plain test strings", render_exported_u8(plain, TEST_STRINGS),
+              render_batch_u8_async(params, TEST_STRINGS, ModelConfig()))
+    print(f"[export] flagship with no kernel (f32 W): {plain_mb:.1f} MB, export {plain_s:.2f} s, load "
+          f"{plain_load_s:.2f} s, operators {list(plain.operators)}; the test strings u8-equal to the plain "
+          f"direct render ({card})", flush=True)
+    if plain.operators:
+        raise AssertionError(f"the artifact with no kernel calls {plain.operators}")
+    del plain
+
+    counts = {k: 0 for k in _counts()}
+
+    def run(strings):
+        torch.cuda.synchronize()
+        _reset_counts()
+        out = render_exported_u8(artifact, strings)
+        torch.cuda.synchronize()
+        got = _counts()
+        for k in counts:
+            counts[k] += got[k]
+        return out, got
+
+    got, _ = run(TEST_STRINGS)
+    _u8_equal("flagship test strings", got, render_batch_u8_async(params, TEST_STRINGS, cfg))
+    out = os.path.join(workdir, "exported_renders")
+    rc, _ = _cli(["render", "--exported", path, "--out", out], "exported render")
+    if rc != 0:
+        raise AssertionError(f"render --exported exited {rc}")
+    bmps = np.stack([read_bmp(os.path.join(out, f"string_{i}.bmp")) for i in range(15)])
+    phase3 = np.stack([read_bmp(os.path.join(workdir, "renders", f"string_{i}.bmp")) for i in range(15)])
+    levels = np.abs(np.round(bmps * 255) - np.round(phase3 * 255))
+    print(f"[export] flagship: the test strings u8-equal to the direct render; `render --exported` BMPs vs "
+          f"phase 3's: {int((levels > 0).sum())} of {levels.size} pixels differ, most {int(levels.max())} "
+          f"gray levels (tol 1)", flush=True)
+    if levels.max() > 1:
+        raise AssertionError("render --exported BMPs more than one gray level from phase 3's")
+    for b in EXPORT_BATCHES:
+        strings = _atlas_strings(b, 100, seed=20 + b)
+        got, launched = run(strings)
+        _u8_equal(f"flagship batch {b}", got, render_batch_u8_async(params, strings, cfg))
+        f32 = launched["fused_attention"] - launched["attention_mma_fwd"] - launched["attention_wide_fwd"]
+        print(f"[export] flagship batch {b}: u8-equal to the direct render; launches K1 "
+              f"{launched['fused_output']}, its GEMM {launched['gemm_bf16_bias_clamp']}, K5 "
+              f"{launched['fused_attention']} (f32 kernel {f32})", flush=True)
+        if (launched["fused_output"], launched["gemm_bf16_bias_clamp"], f32) != (1, 1, 1):
+            raise AssertionError(f"flagship batch {b}: launches {launched}, want one K1 and one f32 K5")
+
+    # The 4096-sheet atlas in calls of 1024 (as phase 3's render_atlas),
+    # through the artifact and through the same ops called eagerly
+    # (render._forward, then the u8 rounding), in turns.
+    strings = _atlas_strings(4096, 100)
+    codes = torch.from_numpy(encode_codes(strings, 100)).pin_memory()
+
+    def atlas(fn):
+        c = codes.to("cuda", non_blocking=True)
+        return torch.cat([fn(c[i : i + 1024]) for i in range(0, 4096, 1024)])
+
+    def eager(c):
+        with torch.inference_mode():
+            return torch.round(_forward(params, c, cfg) * 255.0).to(torch.uint8)
+
+    paths = {"exported": artifact, "eager": eager}
+    torch.cuda.synchronize()
+    _reset_counts()
+    warm = {name: atlas(fn) for name, fn in paths.items()}
+    torch.cuda.synchronize()
+    runs = {name: [] for name in paths}
+    for r in range(5):
+        for name in (("exported", "eager") if r % 2 else ("eager", "exported")):
+            t0 = time.perf_counter()
+            a = atlas(paths[name])
+            torch.cuda.synchronize()
+            runs[name].append(4096 * 100 / (time.perf_counter() - t0))
+            if not torch.equal(a, warm[name]):
+                raise AssertionError(f"the {name} atlas differs between two runs")
+    got = _counts()
+    for k in counts:
+        counts[k] += got[k]
+    _u8_equal("flagship atlas", warm["exported"], warm["eager"])
+    _u8_equal("flagship atlas vs render_atlas", warm["exported"],
+              torch.round(render_atlas(params, strings, cfg) * 255.0).to(torch.uint8))
+    gps = {name: sorted(v) for name, v in runs.items()}
+    print(f"[export] flagship atlas 4096 sheets in calls of 1024, u8 out, in turns: glyphs/s exported "
+          f"{gps['exported']}, median {gps['exported'][2]}; the same ops eagerly {gps['eager']}, median "
+          f"{gps['eager'][2]} (exported / eager {gps['exported'][2] / gps['eager'][2]:.4f}); phase 3's direct "
+          f"render_atlas median {atlas_gps} (exported / it {gps['exported'][2] / atlas_gps:.4f}) ({card})",
+          flush=True)
+    for name, fn in paths.items():
+        _profile_fn(f"export atlas {name}", lambda: atlas(fn))
+    return counts, path
+
+
+def _exported_int8_and_serve(workdir: str, card: str, serve_latency: dict) -> dict:
+    """9b: phase 5's trained weights through `export --int8` (f32 K5), u8-equal
+    to the direct int8 render; then phase 4's serve config (bf16 frontend,
+    K1, K7) exported and served by `serve --exported` in a subprocess:
+    phase 4's three requests byte-equal to render_exported, with their
+    latencies beside phase 4's -> the launches of the int8 artifact's run."""
+    import signal
+
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import replace
+    from ai_font_renderer_tpu_torch.ops import quantized
+    from ai_font_renderer_tpu_torch.render import render_batch_u8_async
+    from ai_font_renderer_tpu_torch.render.server import request_render
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config
+    from ai_font_renderer_tpu_torch.utils.export import render_exported_u8
+
+    trained = os.path.join(workdir, "trained.npz")
+    path, export_s, mb = _export(["--weights", trained, "--int8", "--kernels", "attention", "--out",
+                                  os.path.join(workdir, "int8.pt2")], "export int8")
+    artifact, load_s = _load_artifact(path)
+    params, mcfg = load_params_with_config(trained, device="cuda")
+    served = quantized.quantize_params(params)
+    del params
+    torch.cuda.synchronize()
+    _reset_counts()
+    quantized.int8_product.launches = 0
+    got = render_exported_u8(artifact, TEST_STRINGS)
+    torch.cuda.synchronize()
+    counts, int8_launches = _counts(), quantized.int8_product.launches
+    _u8_equal("int8 test strings", got, render_batch_u8_async(served, TEST_STRINGS, replace(mcfg, fused_attention=True)))
+    print(f"[export] int8 (f32 K5): {mb:.1f} MB, export {export_s:.2f} s, load {load_s:.2f} s; the test strings "
+          f"u8-equal to the direct int8 render; int8 products {int8_launches}, K1 {counts['fused_output']}, K5 "
+          f"{counts['fused_attention']} ({card})", flush=True)
+    if int8_launches != 1 or counts["fused_output"] or counts["fused_attention"] != 1:
+        raise AssertionError(f"int8 artifact: {int8_launches} int8 products, launches {counts}")
+    del artifact, served
+
+    weights = os.path.join(workdir, "font_renderer.npz")
+    path, export_s, mb = _export(["--weights", weights, "--fast", "--kernels", "output,attention_v2", "--out",
+                                  os.path.join(workdir, "serve.pt2")], "export serve")
+    artifact, load_s = _load_artifact(path)
+    sock = os.path.join(workdir, "exported.sock")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "ai_font_renderer_tpu_torch", "serve", "--exported", path,
+                             "--socket", sock], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        while not os.path.exists(sock):
+            if proc.poll() is not None or time.perf_counter() - t0 > 120:
+                raise AssertionError(f"serve --exported did not start: {proc.stdout.read() if proc.poll() is not None else ''}")
+            time.sleep(0.05)
+        start_s = time.perf_counter() - t0
+        request_render(sock, ["WARM UP"])
+        replies, latency_ms, errors = {}, {}, []
+
+        def client(name):
+            try:
+                t1 = time.perf_counter()
+                replies[name] = request_render(sock, SERVE_REQUESTS[name])
+                latency_ms[name] = round((time.perf_counter() - t1) * 1e3, 3)
+            except Exception as e:  # reported below, after the join
+                errors.append((name, repr(e)))
+
+        threads = [threading.Thread(target=client, args=(n,)) for n in SERVE_REQUESTS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"serve --exported clients failed: {errors}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    for line in out.splitlines():
+        print(f"[export serve] | {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --exported exited {proc.returncode}")
+    for name, strings in SERVE_REQUESTS.items():
+        header, payloads = replies[name]
+        got = np.stack([np.frombuffer(p, np.uint8).reshape(80, 240) for p in payloads])
+        want = render_exported_u8(artifact, strings).cpu().numpy()
+        if header["count"] != len(strings) or not np.array_equal(got, want):
+            raise AssertionError(f"serve --exported reply {name} differs from render_exported")
+    print(f"[export] serve (bf16 frontend, K1, K7): {mb:.1f} MB, export {export_s:.2f} s, load {load_s:.2f} s; "
+          f"`serve --exported` in a subprocess listening after {start_s:.2f} s; 3 concurrent requests "
+          f"byte-equal to render_exported; latency ms {latency_ms}, phase 4's {serve_latency} ({card})", flush=True)
+    return counts
+
+
+def _exported_neural(workdir: str, card: str) -> dict:
+    """9c: the committed pairs exported soft (both fonts), FiraCode also with
+    --monotone-placement and with the net's attention through the kernels
+    (--kernels attention): the test strings u8-equal to the direct card
+    render, the soft ones within golden_mse.json per string and under the
+    mean bound, the kernel artifact launching the general K5 forward ->
+    the launches of its run."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.config import replace
+    from ai_font_renderer_tpu_torch.fontgen.dataset import bake_font_atlas, unit_ground_truth
+    from ai_font_renderer_tpu_torch.render.implicit_sheet import render_learned_sheets
+    from ai_font_renderer_tpu_torch.utils.export import render_exported_u8
+
+    counts = {k: 0 for k in _counts()}
+    cases = (("firacode", []), ("montserrat", []), ("firacode", ["--monotone-placement"]),
+             ("firacode", ["--kernels", "attention"]))
+    for font, extra in cases:
+        bank, net, font_path = _implicit_paths(font)
+        name = f"{font} {' '.join(extra) or 'soft'}"
+        out = os.path.join(workdir, f"neural_{font}_{extra[-1].lstrip('-') if extra else 'soft'}.pt2")
+        path, export_s, mb = _export(["--placement", net, "--implicit", bank, "--font", font_path, "--out", out,
+                                      *extra], f"export {name}")
+        artifact, load_s = _load_artifact(path)
+        sp, scfg, charset, pp, pcfg = _implicit_pair(font, "cuda")
+        kernels = "--kernels" in extra
+        monotone = "--monotone-placement" in extra
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = render_exported_u8(artifact, TEST_STRINGS)
+        torch.cuda.synchronize()
+        run = _counts()
+        for k in counts:
+            counts[k] += run[k]
+        with torch.inference_mode():
+            want = render_learned_sheets(sp, pp, TEST_STRINGS, font_path, scfg,
+                                         replace(pcfg, fused_attention=kernels), charset=charset, monotone=monotone)
+        _u8_equal(f"neural {name}", got, torch.round(want * 255.0).to(torch.uint8))
+        line = (f"[export] neural {name}: {mb:.1f} MB, export {export_s:.2f} s, load {load_s:.2f} s, "
+                f"{artifact.sheets_per_call} sheets a call; the test strings u8-equal to the direct card render")
+        if kernels:
+            line += f"; attention_wide_fwd launched {run['attention_wide_fwd']} times"
+            if run["attention_wide_fwd"] != 1 or artifact.operators != ("afr::attention_fwd",):
+                raise AssertionError(f"neural {name}: operators {artifact.operators}, launches {run}")
+        if not (kernels or monotone):
+            with open(os.path.join(os.path.dirname(bank), "golden_mse.json")) as f:
+                golden = json.load(f)["per_string_mse"]
+            gt = unit_ground_truth(bake_font_atlas(font_path, proportional=font == "montserrat"), TEST_STRINGS)
+            sheets = got.cpu().numpy().astype(np.float32) / 255.0
+            mse = [float(np.mean((sheets[i] - gt[i]) ** 2)) for i in range(len(TEST_STRINGS))]
+            delta = float(np.max(np.abs(np.array(mse) - np.array(golden))))
+            mean = float(np.mean((sheets - gt) ** 2))
+            line += (f"; learned MSE on the u8 grid {mean:.6f} (bound {LEARNED_BOUND[font]}), per-string delta "
+                     f"to golden {delta:.3g} (tol {GOLDEN_TOL})")
+            if not (delta < GOLDEN_TOL and mean < LEARNED_BOUND[font]):
+                raise AssertionError(f"neural {name}: MSE {mean}, per-string delta {delta}")
+        print(line + f" ({card})", flush=True)
+    return counts
+
+
+def _exported_standalone(workdir: str, path: str) -> None:
+    """9d: the standalone runner in a subprocess on the card, from 9a's
+    artifact: its BMPs equal `render --exported`'s."""
+    from ai_font_renderer_tpu_torch.cli import TEST_STRINGS
+    from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(root, "ai_font_renderer_tpu_torch", "tools", "run_exported_standalone.py")
+    out = os.path.join(workdir, "standalone")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, tool, path, out, *TEST_STRINGS], env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=300)
+    for line in (res.stdout + res.stderr).splitlines():
+        print(f"[export standalone] | {line}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"the standalone runner exited {res.returncode}")
+    for i in range(len(TEST_STRINGS)):
+        a = read_bmp(os.path.join(out, f"string_{i}.bmp"))
+        b = read_bmp(os.path.join(workdir, "exported_renders", f"string_{i}.bmp"))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"standalone string_{i}.bmp differs from render --exported's")
+    print(f"[export] standalone runner on the card: 15 BMPs equal to `render --exported`'s, "
+          f"{time.perf_counter() - t0:.2f} s with its interpreter's start", flush=True)
+
+
+def phase_export(workdir: str, card: str, atlas_gps: float, serve_latency: dict) -> dict:
+    """Phase 9: the deployment artifacts -> the launches of the in-process
+    runs through them."""
+    seconds = {}
+    t0 = time.perf_counter()
+    counts, path = _exported_flagship(workdir, card, atlas_gps)
+    seconds["flagship"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    more = _exported_int8_and_serve(workdir, card, serve_latency)
+    seconds["int8_and_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = {k: counts[k] + more[k] for k in counts}
+    more = _exported_neural(workdir, card)
+    counts = {k: counts[k] + more[k] for k in counts}
+    seconds["neural"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _exported_standalone(workdir, path)
+    seconds["standalone"] = time.perf_counter() - t0
+    print(f"[export] seconds by check: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
+    for name in ("fused_output", "gemm_bf16_bias_clamp", "fused_attention", "attention_wide_fwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the exported programs never launched {name}: {counts}")
+    return counts
+
+
 def _kernel_entry(name, source, replaces, rows, headline, launches, shadow=False) -> dict:
     """The kernels line's entry: the row ``headline``'s numbers, or with
     ``shadow`` those of its variant that writes W's bf16 shadow (the one
@@ -2758,16 +3149,17 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as workdir:
         params, render_counts, atlas_gps = timed("render", phase_render, workdir, card)
-        serve_counts = timed("serve", phase_serve, params, workdir)
+        serve_counts, serve_latency = timed("serve", phase_serve, params, workdir)
         del params
         train_counts, rates, ds = timed("train", phase_train, workdir, card)
         data_counts = timed("data and weights", phase_data, workdir, card, rates["fused"])
         decoder_counts, int8_rows = timed("decoders and int8", phase_decoders, workdir, card, ds, rates, atlas_gps)
         del ds
         implicit_counts, implicit_rows = timed("implicit", phase_implicit, workdir, card)
+        export_counts = timed("export", phase_export, workdir, card, atlas_gps, serve_latency)
     ab_counts = timed("ab_xt", phase_ab_xt)
     by_phase = {"render": render_counts, "serve": serve_counts, "train": train_counts, "data": data_counts,
-                "decoders": decoder_counts, "implicit": implicit_counts}
+                "decoders": decoder_counts, "implicit": implicit_counts, "export": export_counts}
     print(f"[launches] by phase: {json.dumps(by_phase)}", flush=True)
     launches = {k: sum(c[k] for c in by_phase.values()) for k in render_counts}
     launches["fused_dw_adamw_xt"] = ab_counts["fused_dw_adamw_xt"]

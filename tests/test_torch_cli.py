@@ -51,10 +51,13 @@ def test_training_and_missing_weights_exit_1(argv, capsys):
 
 @pytest.mark.parametrize("extra", [["--exported", "a.hlo"]])
 def test_later_slice_flags_exit_1(weights, extra, tmp_path, capsys):
+    """``render --exported`` is ported (tests/test_torch_export.py): on a
+    missing artifact it exits 1, says so and writes no BMP."""
+    extra = [extra[0], str(tmp_path / extra[1])]
     rc = cli.main(["render", "HI", "--weights", weights, "--out", str(tmp_path), "--device", "cpu", *extra])
     assert rc == 1
     out = capsys.readouterr().out
-    assert "not ported" in out and "item " in out
+    assert "exported artifact not found" in out
     assert not os.path.exists(tmp_path / "string_0.bmp")
 
 
@@ -78,7 +81,9 @@ def test_render_truth_writes_the_shaped_ground_truth(hinted, tmp_path, capsys):
 
 
 def test_other_subcommands_and_serve_flags_exit_1(weights, capsys, monkeypatch, tmp_path):
-    assert cli.main(["export"]) == 1
+    # export is ported: on a missing weights file it exits 1 and says so.
+    assert cli.main(["export", "--weights", str(tmp_path / "nope.npz"), "--device", "cpu"]) == 1
+    assert "weights file not found" in capsys.readouterr().out
     assert cli.main(["train-placement"]) == 1
     assert "item 14" in capsys.readouterr().out
     # serve --int8 is ported: it serves until interrupted, then exits 0.
@@ -144,6 +149,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 if name.split(".")[0] in banned:
                     found.append(f"{path.relative_to(ROOT)}:{node.lineno} imports {name}")
     assert len(_port_sources()) > 10
+    for rel in ("utils/export.py", "tools/run_exported_standalone.py"):
+        assert ROOT / "ai_font_renderer_tpu_torch" / rel in _port_sources(), rel
     assert not found, found
 
 

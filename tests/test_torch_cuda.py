@@ -1210,3 +1210,41 @@ def test_learned_sheets_on_the_card_match_the_cpu(cuda):
         out.append(render_learned_sheets(sp, pp, TEST_STRINGS, MONTSERRAT_PATH, scfg, pcfg, charset=charset).cpu())
     assert out[0].shape == (15, 80, 240)
     assert float((out[0] - out[1]).abs().max()) <= 5e-3
+
+
+EXPORT_CFG = dict(embedding_dim=32, num_heads=4, hidden_dim=16, max_length=40, sheet_height=16, sheet_width=48,
+                  use_pallas_output=True, fused_attention=True)
+
+
+def _export_counts():
+    """K1, its GEMM, K5, and K5 on its f32 kernel (the entry's launches
+    less those of the tensor-core and general builds)."""
+    f32 = fused_attention.launches - attention_mma_fwd.launches - attention_wide_fwd.launches
+    return fused_output.launches, gemm_bf16_bias_clamp.launches, fused_attention.launches, f32
+
+
+@pytest.mark.parametrize("traced_on", ["cuda", "cpu"])
+def test_exported_artifact_launches_k1_and_f32_k5(cuda, traced_on, tmp_path):
+    """An artifact with K1 and f32 K5 at a narrow width, exported on the
+    card or on the CPU and loaded onto the card: every call launches K1
+    and the f32 K5 kernel, and its u8 sheets equal the direct render's on
+    the card bit for bit."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.models import font_renderer
+    from ai_font_renderer_tpu_torch.render.render import render_batch_u8_async
+    from ai_font_renderer_tpu_torch.utils.export import export_render, load_exported, render_exported_u8
+
+    cfg = ModelConfig(**EXPORT_CFG)
+    params = font_renderer.init(torch.Generator(device=cuda).manual_seed(3), cfg, cuda)
+    path = str(tmp_path / "k.pt2")
+    export_render({k: v.to(traced_on) for k, v in params.items()}, cfg, path)
+    artifact = load_exported(path, cuda)
+    assert artifact.operators == ("afr::attention_fwd", "afr::fused_output_fwd")
+    strings = ["HELLO", "", "THE QUICK BROWN FOX JUMPS OVER THE LAZY"]
+    for batch in (strings[:1], strings, strings * 5):
+        before = _export_counts()
+        got = render_exported_u8(artifact, batch)
+        torch.cuda.synchronize()
+        after = _export_counts()
+        assert all(a == b + 1 for a, b in zip(after, before)), (before, after)
+        assert torch.equal(got, render_batch_u8_async(params, batch, cfg))
