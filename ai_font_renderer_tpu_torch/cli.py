@@ -31,6 +31,11 @@ evaluate weights.
                      ``dataset_metadata.txt``;
   * ``eval``         val-split MSE/PSNR and the test strings' MSE of
                      saved weights, as one JSON line;
+  * ``train-placement`` train the learned-placement pipeline: supervised
+                     placement, the SIREN bank, the pixel or joint
+                     fine-tune (train/placement_cli.py; ``--kernels
+                     attention|attention_v2`` trains the net's attention
+                     through the attention kernels);
   * unknown option   usage plus ``Available options: --train``, exit 1.
 
 Everything runs on the card unless ``--device cpu`` is given. ``--kernels``
@@ -38,8 +43,8 @@ picks the training configuration: ``none`` (the JAX package's defaults, no
 kernel), ``output`` (``use_pallas_output``: K1 forward, K2/K3 backward) or
 ``fused`` (``use_pallas_output`` + ``fused_dw_adamw``: K1, K2 and K4); the
 last two are kernels of the linear decoder's projection and exit 1 with a
-conv decoder. Options that need other slices of the port exit 1 with a
-message that says so.
+conv decoder. ``--mesh`` other than one device needs a later slice of the
+port and exits 1 with a message that says so.
 """
 
 from __future__ import annotations
@@ -71,14 +76,6 @@ TEST_STRINGS = [
     "                    ",
 ]
 
-_LATER = (
-    "{flag} is not ported to the PyTorch/CUDA package yet; it comes with a later slice "
-    "(ROADMAP queue 1, item {item})."
-)
-# The ROADMAP item that brings each refused subcommand.
-_ITEM = {
-    "train-placement": "14",
-}
 _KERNELS = {
     "none": ({}, {}),
     "output": ({"use_pallas_output": True}, {}),
@@ -755,8 +752,9 @@ def main(argv: list[str] | None = None) -> int:
     if argv and argv[0] in ("render", "serve", "fontgen", "eval", "export"):
         return _subcommands(argv)
     if argv and argv[0] == "train-placement":
-        print(_LATER.format(flag=argv[0], item=_ITEM[argv[0]]))
-        return 1
+        from .train import placement_cli
+
+        return placement_cli.main(argv[1:])
 
     parser = _train_parser()
     try:

@@ -1,15 +1,17 @@
-"""Learned glyph placement in PyTorch, its inference half: char codes ->
-per-slot glyph positions.
+"""Learned glyph placement in PyTorch: char codes -> per-slot glyph
+positions, and the supervision that trains it.
 
-The port of ai_font_renderer_tpu/models/placement.py (``init`` to
-``line_logits``). A placement transformer, the flagship's frontend
-(``font_renderer.features``) with a per-slot head, reads the raw char codes
-and emits, for every input slot, the glyph's advance-midpoint x, its
-baseline y (base-scale sheet px) and a visibility logit. The head's kind is
-carried by the weights: ``place_w`` [hidden, 3] is the regression head,
-[hidden, 2 + L] the line head (y decoded from L line logits), and with
-``place_adv``/``place_kern`` present [hidden, 3 + L] the structured head (x
-derived from the predicted break structure by :func:`structured_x`).
+The port of ai_font_renderer_tpu/models/placement.py. A placement
+transformer, the flagship's frontend (``font_renderer.features``) with a
+per-slot head, reads the raw char codes and emits, for every input slot,
+the glyph's advance-midpoint x, its baseline y (base-scale sheet px) and a
+visibility logit. The head's kind is carried by the weights: ``place_w``
+[hidden, 3] is the regression head, [hidden, 2 + L] the line head (y
+decoded from L line logits), and with ``place_adv``/``place_kern`` present
+[hidden, 3 + L] the structured head (x derived from the predicted break
+structure by :func:`structured_x`).
+:func:`placement_targets` replays the layout engine on the host for the
+per-slot targets, and :func:`loss_fn` is the supervised loss over them.
 
 With ``fused_attention`` or ``fused_attention_v2`` in the config the
 frontend's attention block runs through the port's attention kernels, as
@@ -230,3 +232,173 @@ def line_logits(
     x = font_renderer.features(params, codes, cfg, train=train, generator=generator)
     off = 3 if head_structured(params) else 2
     return _head(x, params["place_w"], params["place_b"])[..., off:]
+
+
+def placement_targets(
+    strings: list[str],
+    table,
+    spec: SheetSpec = SheetSpec(),
+    max_glyphs: int = 100,
+    full: bool = False,
+    margins: bool = False,
+):
+    """The layout engine's targets, indexed by ORIGINAL character slot (host
+    numpy, the JAX package's code): (midpoints [N, S, 2] f32, visible [N, S]
+    bool), S = spec.max_chars. A visible slot holds the advance-midpoint x
+    and baseline y the engine gives its glyph; spaces, unknown chars,
+    separators a line break consumes and glyphs past ``max_glyphs`` are
+    invisible, their midpoints 0. ``table`` is a fontgen AdvanceTable.
+
+    ``full`` adds the structured head's supervision: (line_idx [N, S] int32,
+    contrib [N, S] bool); a slot contributes when the engine's pen walks
+    over it, and line_idx is its line (0 where it does not). ``margins``
+    appends the per-slot decision margin [N, S] f32: for each word placed
+    against a non-empty line, |measure(candidate) - usable width| on its
+    slots and its separator; +inf elsewhere."""
+    S = spec.max_chars
+    adv = table.advances_px
+    idx = {c: i for i, c in enumerate(table.charset)}
+    max_width = spec.width - 2 * spec.padding
+    n = len(strings)
+    mids = np.zeros((n, S, 2), np.float32)
+    vis = np.zeros((n, S), bool)
+    line_idx = np.zeros((n, S), np.int32)
+    contrib = np.zeros((n, S), bool)
+    margin = np.full((n, S), np.inf, np.float32)
+    for si, text in enumerate(strings):
+        text = text[:S]
+        words = text.split(" ")
+        offs: list[int] = []
+        pos = 0
+        for w in words:
+            offs.append(pos)
+            pos += len(w) + 1
+        # Greedy wrap (wrap_text's rules), each line keeping its chars'
+        # original indices. With a non-empty line the candidate joins one
+        # separator space (the char before the word), which a break
+        # consumes; with an empty one it is the bare word.
+        lines: list[list[tuple[int, str]]] = []
+        cur_text = ""
+        cur_chars: list[tuple[int, str]] = []
+        for wi, word in enumerate(words):
+            wchars = [(offs[wi] + j, c) for j, c in enumerate(word)]
+            if cur_text:
+                test = f"{cur_text} {word}"
+                tchars = cur_chars + [(offs[wi] - 1, " ")] + wchars
+            else:
+                test = word
+                tchars = wchars
+            meas = table.measure(test)
+            if cur_text:
+                m = abs(meas - max_width)
+                for ci, _ in wchars:
+                    margin[si, ci] = m
+                if offs[wi] > 0:
+                    margin[si, offs[wi] - 1] = m
+            if meas > max_width and cur_text:
+                lines.append(cur_chars)
+                cur_text, cur_chars = word, wchars
+            else:
+                cur_text, cur_chars = test, tchars
+        if cur_text:
+            lines.append(cur_chars)
+        g = 0
+        for li, chars in enumerate(lines):
+            baseline = (li + 1) * spec.line_height
+            pen = float(spec.padding)
+            prev = None
+            for ci, ch in chars:
+                k = idx.get(ch)
+                a = adv[0 if k is None else k]
+                if prev is not None:
+                    pen += table.kern(prev, ch)
+                prev = ch
+                line_idx[si, ci] = li
+                contrib[si, ci] = True
+                if k is not None and ch != " " and g < max_glyphs:
+                    mids[si, ci, 0] = pen + 0.5 * a
+                    mids[si, ci, 1] = baseline
+                    vis[si, ci] = True
+                    g += 1
+                pen += a
+    out = [mids, vis]
+    if full:
+        out += [line_idx, contrib]
+    if margins:
+        out.append(margin)
+    return tuple(out)
+
+
+def _bce(logit: torch.Tensor, target_f: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid binary cross-entropy (numerically stable form)."""
+    return torch.mean(torch.clamp(logit, min=0) - logit * target_f + torch.log1p(torch.exp(-logit.abs())))
+
+
+def _line_ce(logits: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum(w * -log softmax(logits)[tgt]) / max(sum(w), 1)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = logp.gather(-1, tgt.long()[..., None])[..., 0]
+    return -torch.sum(picked * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def loss_fn(
+    params,
+    codes: torch.Tensor,
+    mids: torch.Tensor,
+    vis: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    generator: torch.Generator | None = None,
+    train: bool = True,
+    line_tgt: torch.Tensor | None = None,
+    contrib_tgt: torch.Tensor | None = None,
+    detach_structure: bool = False,
+    ce_w: torch.Tensor | None = None,
+    spec: SheetSpec = SheetSpec(),
+) -> torch.Tensor:
+    """The supervised loss: masked position error over visible slots plus
+    the visibility BCE, by head.
+
+    Regression head: x/y squared error (px^2). Line head: x squared error +
+    100 x the line cross-entropy over visible slots (targets round(y /
+    line_height) - 1). Structured head (needs ``line_tgt``/``contrib_tgt``
+    from ``placement_targets(..., full=True)``): the derived x's squared
+    error + 100 x the line CE over contributing slots + the contribution
+    BCE; ``detach_structure`` stops the x error's gradients at the
+    structure probabilities. ``ce_w`` [N, S] reweights the line CE per slot
+    (weighted mean); the regression head ignores it. With ``loss_logvar``
+    in the params the terms combine as sum(exp(-s_i) L_i + s_i) over slots
+    0 = position, 1 = line CE, 2 = contribution BCE, 3 = visibility BCE;
+    else as a plain sum. ``train`` draws dropout from ``generator``."""
+    visf = vis.float()
+    n_vis = torch.clamp(torch.sum(visf), min=1.0)
+    L = head_lines(params)
+    if L == 0:
+        pred_xy, logit = apply(params, codes, cfg, train=train, generator=generator, spec=spec)
+        pos = torch.sum(torch.sum((pred_xy - mids) ** 2, -1) * visf) / n_vis
+        terms = [(0, pos)]
+    elif head_structured(params):
+        if line_tgt is None or contrib_tgt is None:
+            raise ValueError("structured head needs line_tgt/contrib_tgt (placement_targets(..., full=True))")
+        x = font_renderer.features(params, codes, cfg, train=train, generator=generator)
+        out = _head(x, params["place_w"], params["place_b"])
+        logit, llog = out[..., 1], out[..., 3:]
+        px = structured_x(params, codes, out[..., 2], llog, spec, detach=detach_structure) + out[..., 0]
+        pos_x = torch.sum((px - mids[..., 0]) ** 2 * visf) / n_vis
+        cf = contrib_tgt.float()
+        cw = cf if ce_w is None else cf * ce_w
+        ce = _line_ce(llog, torch.clamp(line_tgt, 0, L - 1), cw)
+        terms = [(0, pos_x), (1, 100.0 * ce), (2, _bce(out[..., 2], cf))]
+    else:
+        x = font_renderer.features(params, codes, cfg, train=train, generator=generator)
+        out = _head(x, params["place_w"], params["place_b"])
+        logit = out[..., 1]
+        pos_x = torch.sum((out[..., 0] - mids[..., 0]) ** 2 * visf) / n_vis
+        tgt = torch.clamp(torch.round(mids[..., 1] / spec.line_height).to(torch.int32) - 1, 0, L - 1)
+        cw = visf if ce_w is None else visf * ce_w
+        terms = [(0, pos_x), (1, 100.0 * _line_ce(out[..., 2:], tgt, cw))]
+    terms.append((3, _bce(logit, visf)))
+    if "loss_logvar" in params:
+        s = params["loss_logvar"]
+        return sum(torch.exp(-s[i]) * t + s[i] for i, t in terms)
+    return sum(t for _, t in terms)

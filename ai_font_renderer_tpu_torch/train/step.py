@@ -10,8 +10,8 @@ JAX step donates its buffers) and returns it with the batch loss.
 
 AdamW has optax's semantics (``make_optimizer`` in the JAX package:
 scale_by_adam -> add_decayed_weights -> scale(-1), times lr), written as
-plain tensor code over chunks of at most 4M elements, so the 123M-parameter
-projection needs no full-size temporaries:
+plain tensor code over chunks of at most 4M elements (train/optim.py), so
+the 123M-parameter projection needs no full-size temporaries:
 
     mu <- b1*mu + (1-b1)*g            (f32; stored bf16 when adam_mu_bf16)
     nu <- b2*nu + (1-b2)*g^2
@@ -47,9 +47,7 @@ from ..device import resolve_device
 from ..models import font_renderer
 from ..ops.fused_dw_adamw import fused_dw_adamw
 from ..ops.fused_output import _k1, _k2, clamp_mask
-
-EPS = 1e-8
-_CHUNK = 1 << 22  # elements per AdamW chunk: 16 MB of f32 temporaries
+from .optim import EPS, adam_
 
 
 @dataclass
@@ -166,32 +164,11 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (d * d).mean()
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
-
-
-def _in_dtype(value: float, dtype: torch.dtype) -> float:
-    """``value`` rounded to ``dtype``. optax multiplies a moment by its
-    decay as a scalar of the moment's own dtype, so with a bf16 mu b1 = 0.9
-    becomes 0.8984375; the product and the sum stay f32."""
-    return float(torch.tensor(value, dtype=dtype))
-
-
-@torch.no_grad()
 def adamw_(params, grads, mus, nus, lr: float, tcfg: TrainConfig, count: int) -> None:
-    """optax's AdamW over matching lists of tensors, in place, in chunks of
-    at most ``_CHUNK`` elements. ``count`` is the step after its increment."""
-    b1, b2, wd = tcfg.adam_b1, tcfg.adam_b2, tcfg.weight_decay
-    bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
-    for p, g, mu, nu in zip(params, grads, mus, nus):
-        chunks = (p.view(-1), g.reshape(-1), mu.view(-1), nu.view(-1))
-        for pc, gc, mc, nc in zip(*(t.split(_CHUNK) for t in chunks)):
-            m = mc.float().mul_(_in_dtype(b1, mc.dtype)).add_(gc, alpha=1 - b1)
-            nc.mul_(b2).addcmul_(gc, gc, value=1 - b2)
-            denom = (nc / bc2).sqrt_().add_(EPS)
-            u = (m / bc1).div_(denom).add_(pc, alpha=wd)
-            pc.add_(u, alpha=-lr)
-            mc.copy_(m)
+    """optax's AdamW with ``tcfg``'s betas and weight decay over matching
+    lists of tensors, in place (``optim.adam_``). ``count`` is the step
+    after its increment."""
+    adam_(params, grads, mus, nus, lr, count, tcfg.adam_b1, tcfg.adam_b2, tcfg.weight_decay)
 
 
 def loss_fn(params, codes, targets, mcfg, generator):

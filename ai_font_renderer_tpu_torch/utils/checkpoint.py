@@ -12,9 +12,11 @@ weights plus a ``__siren_config__`` entry, the same file in both packages.
 
 :class:`CheckpointManager` keeps a run's full state (parameters, AdamW
 moments, step count), its best-weights snapshot and the host's control
-state per epoch, written with ``torch.save``. It cannot read the JAX
-package's orbax checkpoints, nor they its own; weights cross between the
-packages through the npz file.
+state per epoch, written with ``torch.save``; ``save_tree``/``restore_tree``
+keep any tree of tensors instead (the placement fine-tune's tunable
+parameters and Adam state). It cannot read the JAX package's orbax
+checkpoints, nor they its own, so a fine-tune cannot resume across the
+packages; weights cross between them through the npz file.
 """
 
 from __future__ import annotations
@@ -164,6 +166,40 @@ def _state_record(state) -> dict:
     return record
 
 
+def _shape(tree) -> str:
+    if isinstance(tree, dict):
+        return f"keys {sorted(tree)}"
+    if isinstance(tree, (tuple, list)):
+        return f"{len(tree)} entries"
+    return type(tree).__name__
+
+
+def _like(saved, template):
+    """``saved`` (a tree read back by torch.load) in ``template``'s form:
+    the same dict keys and sequence lengths (else ValueError), tuples where
+    the template has tuples, each tensor on the device and in the dtype of
+    the template's, requiring a gradient where the template's does."""
+    if isinstance(template, dict):
+        if not isinstance(saved, dict) or set(saved) != set(template):
+            raise ValueError(f"checkpoint holds {_shape(saved)} where the template has keys {sorted(template)}")
+        return {k: _like(saved[k], template[k]) for k in template}
+    if isinstance(template, (tuple, list)):
+        if not isinstance(saved, (tuple, list)) or len(saved) != len(template):
+            raise ValueError(f"checkpoint holds {_shape(saved)} where the template has {len(template)} entries")
+        return type(template)(_like(a, b) for a, b in zip(saved, template))
+    if isinstance(template, torch.Tensor):
+        return saved.to(device=template.device, dtype=template.dtype).requires_grad_(template.requires_grad)
+    return saved
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_detached(v) for v in tree)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
+
 def _state_from_record(record: dict, template):
     """Rebuild a state of ``template``'s type (TrainState or
     FusedTrainState) from a saved record, each tensor on the device and in
@@ -171,26 +207,17 @@ def _state_from_record(record: dict, template):
     if record["type"] != type(template).__name__:
         raise ValueError(f"checkpoint holds a {record['type']}, not a {type(template).__name__}")
 
-    def like(saved, t):
-        if isinstance(t, dict):
-            if set(saved) != set(t):
-                raise ValueError(f"checkpoint keys differ: {sorted(set(saved) ^ set(t))}")
-            return {k: like(saved[k], t[k]) for k in t}
-        if isinstance(t, torch.Tensor):
-            return saved.to(device=t.device, dtype=t.dtype)
-        return saved
-
-    fields = {f.name: like(record[f.name], getattr(template, f.name)) for f in dataclasses.fields(template)}
+    fields = {f.name: _like(record[f.name], getattr(template, f.name)) for f in dataclasses.fields(template)}
     fields["params"] = {k: v.requires_grad_() for k, v in fields["params"].items()}
     return type(template)(**fields)
 
 
 class CheckpointManager:
     """Step checkpoints of a training run, one directory per step:
-    ``step_XXXXXXXX/tree.pt`` (the state and the best-weights snapshot,
-    ``torch.save``) and ``host_state.json`` (the host's control state),
-    written last, which marks the checkpoint complete. The newest ``keep``
-    are kept."""
+    ``step_XXXXXXXX/tree.pt`` (``torch.save`` of the state and the
+    best-weights snapshot, or of any tree) and ``host_state.json`` (the
+    host's control state), written last, which marks the checkpoint
+    complete. The newest ``keep`` are kept."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = os.path.abspath(directory)
@@ -217,13 +244,19 @@ class CheckpointManager:
     def save(self, step: int, state, best_params: dict, host_state: dict) -> None:
         """Save the training state, the best-weights snapshot and the host
         state for ``step``, then drop all but the newest ``keep`` steps."""
+        tree = {"state": _state_record(state), "best_params": _detached(best_params)}
+        self.save_tree(step, tree, host_state)
+
+    def save_tree(self, step: int, tree, host_state: dict) -> None:
+        """Save any tree of tensors, numbers, dicts, tuples and lists (the
+        fine-tune's (tunable, Adam state)) and the host state for ``step``,
+        then drop all but the newest ``keep`` steps."""
         path = self._step_dir(step)
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(path, ignore_errors=True)
         os.makedirs(tmp)
-        tree = {"state": _state_record(state), "best_params": {k: v.detach() for k, v in best_params.items()}}
-        torch.save(tree, os.path.join(tmp, "tree.pt"))
+        torch.save(_detached(tree), os.path.join(tmp, "tree.pt"))
         os.replace(tmp, path)
         with open(os.path.join(path, "host_state.json"), "w") as f:
             json.dump(host_state, f)
@@ -243,10 +276,20 @@ class CheckpointManager:
         latest. The state comes back as ``template``'s type (TrainState or
         FusedTrainState) with each tensor on the device and in the dtype of
         ``template``'s; the best-weights snapshot follows its parameters."""
+        step, tree, host = self.restore_tree(step)
+        state = _state_from_record(tree["state"], template)
+        best = {k: v.to(device=template.params[k].device) for k, v in tree["best_params"].items()}
+        return step, state, best, host
+
+    def restore_tree(self, step: int | None = None, template=None):
+        """-> (step, tree, host_state) of a :meth:`save_tree` checkpoint;
+        step None restores the latest. With ``template`` the tree comes
+        back in its form (tuples, devices, dtypes, gradients), and a tree
+        of another structure raises ValueError."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         tree = torch.load(os.path.join(self._step_dir(step), "tree.pt"), map_location="cpu", weights_only=True)
-        state = _state_from_record(tree["state"], template)
-        best = {k: v.to(device=template.params[k].device) for k, v in tree["best_params"].items()}
-        return step, state, best, self.host_state(step)
+        if template is not None:
+            tree = _like(tree, template)
+        return step, tree, self.host_state(step)

@@ -133,11 +133,35 @@ Phases, each of which raises on failure, each with its seconds:
    u8-equal to the direct card render, the soft ones within
    golden_mse.json; (d) the standalone runner in a subprocess on the
    card, its BMPs equal to `render --exported`'s.
-10. One JSON line listing every kernel (K1-K9, the operand pass, the
+10. Placement and implicit training (train/placement_cli.py,
+   train/implicit.py): (a) `train-placement` through the CLI in this
+   process: FiraCode at the committed nets' capacity (line head 5, E 64,
+   H 8, hidden 128) with `--kernels attention`, 20480 samples, 2 epochs at
+   batch 1024 (the val RMSE must fall), the full SIREN bank for 300 steps,
+   the joint fine-tune for 100 steps at batch 64 with a checkpoint at step
+   50 (the e2e rows finite), then that fine-tune resumed from step 50 (the
+   last pixel MSE within 1e-4 relative and the first equal; whether the
+   tuned files are bit-equal is printed), Montserrat's structured head
+   with `--kernels attention_v2` and FiraCode at the CLI's default dims (E
+   32, H 4: the cluster kernels) with `--kernels attention`, 10240
+   samples, 1 epoch each; the stage seconds and steps/s; (b) one
+   supervised step (batch 1024) and one joint fine-tune step (batch 64)
+   with each fused attention flag against the plain attention at dropout
+   0, at E 64, H 8 (the general build) and E 32, H 4 (the cluster
+   kernels): loss within STEP_LOSS_REL_TOL, the attention weights'
+   gradients within STEP_ATTN_GRAD_TOL["f32"] of the largest; steps/s of
+   the supervised step with each flag at dropout 0.2, one profiled step,
+   the fine-tune step's steps/s and peak device memory; (c) train_siren
+   at full size, train_multifont on both fonts and train_siren in SDF mode
+   on 16 glyphs, 200 steps each, the loss falling, steps/s; (d) the
+   general attention forward and backward at B 1024, S 100, E 64, H 8,
+   rate 0.2, f32, against their plain versions, timed beside the library
+   and the bound.
+11. One JSON line listing every kernel (K1-K9, the operand pass, the
    GEMMs of K2 and K3, the bf16 attention forward and backward on
    tensor cores, and the general attention forward and backward) with its
    launches on the
-   main paths (phases 3-9 and the K4/K9 A/B; counts are set to 0
+   main paths (phases 3-10 and the K4/K9 A/B; counts are set to 0
    just before each drive and read just after), its error and its times.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
@@ -963,9 +987,10 @@ WIDE_SHAPES = ((100, 64, 4), (129, 32, 4))
 WIDE_FWD_BF16_REL_TOL = 2e-2
 
 
-def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES) -> tuple[list[dict], list[dict]]:
+def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES, dtypes=(torch.float32, torch.bfloat16)
+                         ) -> tuple[list[dict], list[dict]]:
     """The general attention kernels (csrc/attention_wide.cu) at the shapes
-    the register-tiled ones do not take, at dropout 0.2, f32 and bf16: the
+    the register-tiled ones do not take, at dropout 0.2, in ``dtypes``: the
     forward with the mask stored (K7's general build) and drawn (K5's)
     against the plain forward fed the plain mask, the stored mask byte for
     byte; the backward with the mask read (K8's) and regenerated (K6's)
@@ -986,7 +1011,7 @@ def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES) -> tuple[list[dict], list
         w = _attn_weights(g, e)
         mask_shape = (bsz, heads, s, s)
         mask = dropout_keep(seed, mask_shape, DROPOUT).to(torch.uint8)
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
             gy = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
             drawn, _ = attention_wide_fwd(x, w, heads, DROPOUT, seed)
@@ -3088,6 +3113,287 @@ def phase_export(workdir: str, card: str, atlas_gps: float, serve_latency: dict)
     return counts
 
 
+# Phase 10: placement and implicit training (train/placement_cli.py,
+# train/implicit.py). The committed nets' capacity (E 64, H 8, hidden 128)
+# takes the general attention build; the CLI's default dims (E 32, H 4,
+# hidden 64) the register-tiled f32 cluster kernels.
+PLACEMENT_DIMS = {"E64,H8,hidden128": (64, 8, 128), "E32,H4,hidden64": (32, 4, 64)}
+# A resumed fine-tune against the uninterrupted one: the last pixel MSE
+# within this of each other, relative (the files are also compared, and
+# whether they are bit-equal is printed).
+RESUME_REL_TOL = 1e-4
+
+
+def _train_placement(argv: list[str], tag: str) -> tuple[list[dict], dict]:
+    """`train-placement` in this process -> (its JSON lines, its stage
+    seconds line)."""
+    rc, lines = _cli(["train-placement", *argv], tag)
+    if rc != 0:
+        raise AssertionError(f"train-placement {tag} exited {rc}")
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    return rows, next(r for r in rows if "stage_seconds" in r)
+
+
+def _npz_diff(a: str, b: str) -> tuple[bool, float]:
+    """(every array equal, largest |difference|) of two npz files."""
+    with np.load(a) as za, np.load(b) as zb:
+        keys = [k for k in za.files if za[k].dtype.kind == "f"]
+        equal = za.files == zb.files and all(np.array_equal(za[k], zb[k]) for k in za.files)
+        return equal, max(float(np.abs(za[k] - zb[k]).max()) for k in keys)
+
+
+def _placement_chain(workdir: str, card: str) -> tuple[dict, dict]:
+    """10a: the pipeline through the CLI in this process: FiraCode at the
+    committed capacity with `--kernels attention` (supervised, SIREN bank,
+    joint fine-tune with checkpoints, the evaluation rows), the fine-tune
+    resumed from its step-50 checkpoint, Montserrat's structured head with
+    `--kernels attention_v2`, and FiraCode at the CLI's default dims with
+    `--kernels attention` -> (launches, rates)."""
+    import shutil
+
+    root = os.path.join(workdir, "placement")
+    fira, resumed = os.path.join(root, "firacode"), os.path.join(root, "firacode_resumed")
+    wide = ["--line-head", "5", "--embed-dim", "64", "--hidden-dim", "128", "--batch", "1024"]
+    ft = ["--finetune-joint", "--finetune-steps", "100", "--finetune-samples", "4096", "--ft-checkpoint-every", "50"]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows, stages = _train_placement(["--font", "firacode", "--kernels", "attention", "--samples", "20480", *wide,
+                                     "--epochs", "2", "--e2e-steps", "300", *ft, "--out", fira], "placement firacode")
+    seconds = {"firacode": time.perf_counter() - t0}
+    epochs = [r for r in rows if "epoch" in r]
+    e2e = next(r for r in rows if "end_to_end_neural_render_mse" in r)
+    tuned = next(r for r in rows if "finetune_pixel_mse_last" in r)
+    e2e_values = [e2e[k] for k in ("end_to_end_neural_render_mse", "engine_layout_oracle_mse",
+                                   "engine_layout_oracle_tuned_mse", "siren_final_loss")]
+    if not (len(epochs) == 2 and epochs[1]["val_rmse_px"] < epochs[0]["val_rmse_px"]
+            and np.isfinite(e2e_values).all() and np.isfinite(tuned["finetune_pixel_mse_last"])):
+        raise AssertionError(f"placement firacode: val rows {epochs}, e2e {e2e}, fine-tune {tuned}")
+    st = stages["stage_seconds"]
+    rates = {
+        "supervised_steps_per_s": stages["supervised_steps"] / st["supervised_train"],
+        "siren_steps_per_s": 300 / st["siren"],
+        "finetune_steps_per_s": stages["finetune_steps"] / st["finetune"],
+    }
+
+    os.makedirs(resumed)
+    shutil.copytree(os.path.join(fira, "ft_ckpt"), os.path.join(resumed, "ft_ckpt"))
+    t0 = time.perf_counter()
+    rows, _ = _train_placement(["--font", "firacode", "--kernels", "attention", "--samples", "20480", *wide,
+                                "--epochs", "0", "--init-from", os.path.join(fira, "placement.npz"),
+                                "--siren-from", os.path.join(fira, "siren.npz"), *ft, "--ft-resume",
+                                "--out", resumed], "placement firacode resumed")
+    seconds["firacode_resumed"] = time.perf_counter() - t0
+    again = next(r for r in rows if "finetune_pixel_mse_last" in r)
+    diffs = {name: _npz_diff(os.path.join(fira, name), os.path.join(resumed, name))
+             for name in ("placement_finetuned.npz", "siren_finetuned.npz")}
+    last_rel = abs(again["finetune_pixel_mse_last"] - tuned["finetune_pixel_mse_last"]) / tuned["finetune_pixel_mse_last"]
+    print(f"[placement] --ft-resume from step 50 against the uninterrupted 100 steps: files bit-equal "
+          f"{ {k: v[0] for k, v in diffs.items()} }, largest |difference| { {k: v[1] for k, v in diffs.items()} }; "
+          f"last pixel MSE {again['finetune_pixel_mse_last']} vs {tuned['finetune_pixel_mse_last']} (rel {last_rel:.3g}, "
+          f"tol {RESUME_REL_TOL}); first {again['finetune_pixel_mse_first']} vs {tuned['finetune_pixel_mse_first']}",
+          flush=True)
+    if not (last_rel <= RESUME_REL_TOL and again["finetune_pixel_mse_first"] == tuned["finetune_pixel_mse_first"]):
+        raise AssertionError("the resumed fine-tune does not agree with the uninterrupted one")
+
+    for font, dims, kernels, extra in (("montserrat", wide, "attention_v2", ["--structured"]),
+                                       ("firacode", ["--line-head", "5", "--batch", "1024"], "attention", [])):
+        tag = f"{font} {'E64' if dims is wide else 'E32'} {kernels}"
+        t0 = time.perf_counter()
+        rows, stages = _train_placement(["--font", font, "--kernels", kernels, "--samples", "10240", *dims, *extra,
+                                         "--epochs", "1", "--no-e2e", "--out", os.path.join(root, tag.replace(" ", "_"))],
+                                        f"placement {tag}")
+        seconds[tag] = time.perf_counter() - t0
+        row = next(r for r in rows if "epoch" in r)
+        if not all(np.isfinite(row[k]) for k in ("train_loss", "val_rmse_px", "val_line_acc")):
+            raise AssertionError(f"placement {tag}: {row}")
+        rates[f"supervised_steps_per_s {tag}"] = stages["supervised_steps"] / stages["stage_seconds"]["supervised_train"]
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"[placement] CLI runs' seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})} ({card})", flush=True)
+    for name in ("fused_attention", "fused_attention2", "fused_attention_backward", "fused_attention2_backward",
+                 "attention_wide_fwd", "attention_wide_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"placement training never launched {name}: {counts}")
+    return counts, rates
+
+
+def _placement_inputs(bsz: int):
+    """A FiraCode batch: codes, midpoints and visibility of ``bsz`` corpus
+    strings on the card, and the fine-tune's first 64: ids, valid and the
+    ground truth."""
+    from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, PRINTABLE_ASCII, SheetSpec
+    from ai_font_renderer_tpu_torch.fontgen.dataset import bake_font_atlas, synthesize_ground_truth
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.fontgen.textgen import generate_corpus
+    from ai_font_renderer_tpu_torch.models import placement
+    from ai_font_renderer_tpu_torch.render.implicit_sheet import known_slots
+    from ai_font_renderer_tpu_torch.train.placement_cli import build_table
+
+    strings = generate_corpus(bsz, base_seed=15)
+    mids, vis = placement.placement_targets(strings, build_table(FIRACODE_PATH, SheetSpec(), PRINTABLE_ASCII, False))
+    ids, valid = known_slots(strings[:64], PRINTABLE_ASCII, 100)
+    gt = synthesize_ground_truth(bake_font_atlas(FIRACODE_PATH), strings[:64], on_device=True, device="cuda")
+    cuda = [torch.from_numpy(a).cuda() for a in (encode_codes(strings, 100), mids, vis, ids, valid, gt)]
+    return cuda[:3], cuda[3:]
+
+
+def _placement_kernel_checks(workdir: str, card: str) -> dict:
+    """10b: one supervised step's loss and gradients (batch 1024) and one
+    joint fine-tune step's (batch 64, the bank 10a trained) with each fused
+    attention flag against the plain attention, dropout off, at the
+    committed capacity (general kernels) and the CLI's default dims
+    (cluster kernels); then steps/s of the supervised step at dropout 0.2
+    with each flag, a profiled supervised step, and the fine-tune step's
+    steps/s and peak device memory -> rates."""
+    from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, ModelConfig, SheetSpec, replace
+    from ai_font_renderer_tpu_torch.fontgen.ttf import TrueTypeFont
+    from ai_font_renderer_tpu_torch.models import placement
+    from ai_font_renderer_tpu_torch.ops.fused_attention import KEYS, kernel_takes
+    from ai_font_renderer_tpu_torch.render.implicit_sheet import build_layout
+    from ai_font_renderer_tpu_torch.train import optim
+    from ai_font_renderer_tpu_torch.train import placement_cli as pc
+    from ai_font_renderer_tpu_torch.utils.checkpoint import load_siren
+
+    (codes, mids, vis), (ids, valid, gt) = _placement_inputs(1024)
+    ft_codes = codes[:64]
+    sp, scfg, _ = load_siren(os.path.join(workdir, "placement", "firacode", "siren.npz"), device="cuda")
+    bank = pc.trainable(sp)
+    lay = build_layout(TrueTypeFont.load(FIRACODE_PATH), SheetSpec(), scfg.cell, max_glyphs=100)
+    flags = (None, "fused_attention", "fused_attention_v2")
+    rates = {}
+    for dims, (e, heads, hidden) in PLACEMENT_DIMS.items():
+        base = replace(ModelConfig(), embedding_dim=e, num_heads=heads, hidden_dim=hidden)
+        if kernel_takes(100, e, heads, torch.float32) != (e == 32):
+            raise AssertionError(f"{dims}: kernel_takes does not pick the build phase 10 expects")
+        params = pc.trainable(placement.init(torch.Generator().manual_seed(1), base, lines=5, device="cuda"))
+        off = replace(base, dropout_rate=0.0, fc_dropout_rate=0.0)
+        for kind in ("supervised", "finetune"):
+            out = {}
+            for flag in flags:
+                cfg = replace(off, **{flag: True}) if flag else off
+                if kind == "supervised":
+                    loss = placement.loss_fn(params, codes, mids, vis, cfg, generator=torch.Generator(device="cuda"))
+                    leaves = [params[k] for k in KEYS]
+                else:
+                    loss = pc.make_pixel_loss(cfg, scfg, lay)((params, bank), ft_codes, ids, valid, gt)
+                    leaves = [params[k] for k in KEYS] + optim.tree_leaves(bank)
+                grads = torch.autograd.grad(loss, leaves)
+                out[flag] = (float(loss.detach()), dict(zip(KEYS, grads)))
+            ref_loss, ref = out[None]
+            scale = max(float(v.abs().max()) for v in ref.values())
+            for flag in flags[1:]:
+                loss, got = out[flag]
+                loss_rel = abs(loss - ref_loss) / ref_loss
+                grad_rel = max(float((got[k] - ref[k]).abs().max()) for k in KEYS) / scale
+                print(f"[placement] {dims}, one {kind} step, {flag} vs plain attention (dropout off): loss {loss:.8g} "
+                      f"vs {ref_loss:.8g} (rel {loss_rel:.3g}, tol {STEP_LOSS_REL_TOL}); gradient of wq..bo max err "
+                      f"{grad_rel:.3g} of the largest (tol {STEP_ATTN_GRAD_TOL['f32']})", flush=True)
+                if not (loss_rel <= STEP_LOSS_REL_TOL and grad_rel <= STEP_ATTN_GRAD_TOL["f32"]):
+                    raise AssertionError(f"{dims} {kind} {flag}: loss rel {loss_rel}, grad rel {grad_rel}")
+        # Steps/s of the supervised step at the model's dropout, each flag.
+        for flag in flags:
+            cfg = replace(base, **{flag: True}) if flag else base
+            opt = optim.Adam(1e-3, weight_decay=1e-4)
+            p = pc.trainable(params)
+            state = opt.init(p)
+            step = pc.make_supervised_step(cfg, opt)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            run = lambda: step(p, state, codes, mids, vis, None, None, None, gen)  # noqa: E731
+            for _ in range(2):
+                run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+            rates[f"supervised {dims} {flag or 'plain'}"] = 10 / (time.perf_counter() - t0)
+            if flag == "fused_attention" and e == 64:
+                _profile_fn(f"supervised placement step, B=1024, {dims}, fused_attention, dropout 0.2", run, top=12)
+            del p, state
+        # The joint fine-tune step at batch 64 with the kernels: steps/s and
+        # its peak device memory.
+        cfg = replace(base, fused_attention=True)
+        tunable = (pc.trainable(params), pc.trainable(sp))
+        opt = optim.Adam(1e-4)
+        state = opt.init(tunable)
+        step = pc.make_finetune_step(pc.make_pixel_loss(cfg, scfg, lay), opt)
+        step(tunable, state, ft_codes, ids, valid, gt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(tunable, state, ft_codes, ids, valid, gt)
+        torch.cuda.synchronize()
+        rates[f"joint fine-tune {dims} fused_attention"] = 5 / (time.perf_counter() - t0)
+        rates[f"joint fine-tune {dims} peak MiB above its inputs"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+        del tunable, state, params
+    print(f"[placement] steps/s (10 after 2 warm; supervised at batch 1024, fine-tune at 64, 5 steps) and peak "
+          f"memory: {json.dumps({k: round(v, 2) for k, v in rates.items()})} ({card})", flush=True)
+    return rates
+
+
+def _implicit_trainers(card: str) -> dict:
+    """10c: train_siren at full size (95 glyphs, cell 64, hidden 128, 4
+    layers, full batch), train_multifont on both fonts (2 x 95 glyphs) and
+    train_siren in SDF mode on 16 glyphs, 200 steps each: the loss falls;
+    steps/s over the run less its host targets' seconds."""
+    from ai_font_renderer_tpu_torch.config import FIRACODE_PATH, MONTSERRAT_PATH, PRINTABLE_ASCII
+    from ai_font_renderer_tpu_torch.fontgen.glyphs import rasterize_charset, sdf_charset
+    from ai_font_renderer_tpu_torch.models.siren import SirenConfig
+    from ai_font_renderer_tpu_torch.train.implicit import train_multifont, train_siren
+
+    steps, rates = 200, {}
+    sdf_chars = PRINTABLE_ASCII[33:49]
+    runs = {
+        "siren": (lambda: train_siren(FIRACODE_PATH, SirenConfig(), steps=steps, lr=3e-4, device="cuda"),
+                  lambda: rasterize_charset(FIRACODE_PATH, PRINTABLE_ASCII, 64)),
+        "multifont": (lambda: train_multifont([FIRACODE_PATH, MONTSERRAT_PATH], steps=steps, device="cuda"),
+                      lambda: [rasterize_charset(f, PRINTABLE_ASCII, 64) for f in (FIRACODE_PATH, MONTSERRAT_PATH)]),
+        "siren_sdf16": (lambda: train_siren(FIRACODE_PATH, SirenConfig(n_chars=16, mode="sdf"), charset=sdf_chars,
+                                            steps=steps, device="cuda"),
+                        lambda: sdf_charset(FIRACODE_PATH, sdf_chars, 64)),
+    }
+    for name, (train, targets) in runs.items():
+        t0 = time.perf_counter()
+        targets()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses, _ = train()
+        total_s = time.perf_counter() - t0
+        rates[name] = steps / (total_s - host_s)
+        print(f"[implicit train] {name}: loss {losses[0]:.6f} -> {losses[-1]:.6f} in {steps} steps, {total_s:.2f} s "
+              f"({host_s:.2f} s of it host targets): {rates[name]:.2f} steps/s ({card})", flush=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    return rates
+
+
+def phase_placement(workdir: str, card: str) -> tuple[dict, list[dict], list[dict]]:
+    """Phase 10: placement and implicit training -> (the launches of the
+    CLI runs, the general attention's forward and backward rows at the
+    placement net's training shape)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    counts, rates = _placement_chain(workdir, card)
+    seconds["chain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rates.update(_placement_kernel_checks(workdir, card))
+    seconds["kernel_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rates.update(_implicit_trainers(card))
+    seconds["implicit_trainers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd_rows, bwd_rows = check_attention_wide(shapes=((100, 64, 8),), dtypes=(torch.float32,))
+    seconds["general_attention"] = time.perf_counter() - t0
+    print(f"[placement] rates {json.dumps({k: round(v, 3) for k, v in rates.items()})} ({card})", flush=True)
+    print(f"[placement] seconds by check: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
+    return counts, fwd_rows, bwd_rows
+
+
 def _kernel_entry(name, source, replaces, rows, headline, launches, shadow=False) -> dict:
     """The kernels line's entry: the row ``headline``'s numbers, or with
     ``shadow`` those of its variant that writes W's bf16 shadow (the one
@@ -3157,9 +3463,12 @@ def main() -> int:
         del ds
         implicit_counts, implicit_rows = timed("implicit", phase_implicit, workdir, card)
         export_counts = timed("export", phase_export, workdir, card, atlas_gps, serve_latency)
+        placement_counts, placement_fwd_rows, placement_bwd_rows = timed(
+            "placement", phase_placement, workdir, card)
     ab_counts = timed("ab_xt", phase_ab_xt)
     by_phase = {"render": render_counts, "serve": serve_counts, "train": train_counts, "data": data_counts,
-                "decoders": decoder_counts, "implicit": implicit_counts, "export": export_counts}
+                "decoders": decoder_counts, "implicit": implicit_counts, "export": export_counts,
+                "placement": placement_counts}
     print(f"[launches] by phase: {json.dumps(by_phase)}", flush=True)
     launches = {k: sum(c[k] for c in by_phase.values()) for k in render_counts}
     launches["fused_dw_adamw_xt"] = ab_counts["fused_dw_adamw_xt"]
@@ -3220,12 +3529,12 @@ def main() -> int:
         ),
         _kernel_entry(
             "attention_wide_fwd (K5/K7 at other shapes, f32 and bf16)", src + "attention_wide.cu",
-            "ai_font_renderer_tpu/ops/fused_attention.py:65", wide_fwd_rows + implicit_rows,
+            "ai_font_renderer_tpu/ops/fused_attention.py:65", wide_fwd_rows + implicit_rows + placement_fwd_rows,
             f"B=1024,S=100,E=64,H=4,float32,dropout={DROPOUT}", launches["attention_wide_fwd"],
         ),
         _kernel_entry(
             "attention_wide_bwd (K6/K8 at other shapes, f32 and bf16)", src + "attention_wide.cu",
-            "ai_font_renderer_tpu/ops/fused_attention.py:122", wide_bwd_rows,
+            "ai_font_renderer_tpu/ops/fused_attention.py:122", wide_bwd_rows + placement_bwd_rows,
             f"B=1024,S=100,E=64,H=4,float32,dropout={DROPOUT}", launches["attention_wide_bwd"],
         ),
         _kernel_entry(

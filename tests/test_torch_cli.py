@@ -84,8 +84,9 @@ def test_other_subcommands_and_serve_flags_exit_1(weights, capsys, monkeypatch, 
     # export is ported: on a missing weights file it exits 1 and says so.
     assert cli.main(["export", "--weights", str(tmp_path / "nope.npz"), "--device", "cpu"]) == 1
     assert "weights file not found" in capsys.readouterr().out
-    assert cli.main(["train-placement"]) == 1
-    assert "item 14" in capsys.readouterr().out
+    # train-placement is ported; only a device mesh is refused.
+    assert cli.main(["train-placement", "--mesh", "2", "--device", "cpu"]) == 1
+    assert "item 15" in capsys.readouterr().out
     # serve --int8 is ported: it serves until interrupted, then exits 0.
     import time
 
