@@ -69,6 +69,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "mma_frag.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -83,91 +84,9 @@ constexpr int MASK_NONE = 0;    // rate 0
 constexpr int MASK_REGEN = 1;   // drawn from the seed
 constexpr int MASK_STORED = 2;  // forward: drawn and stored; backward: read
 
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b: a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b: a 16x8, b 8x8.
-__device__ __forceinline__ void mma1688(float c[4], uint32_t a0, uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-// Two f32 values rounded to bf16 and packed, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
 __device__ __forceinline__ void zero(float c[4]) { c[0] = c[1] = c[2] = c[3] = 0.f; }
-
-// Fragment addresses, for a lane of a warp (ldmatrix takes one row address
-// per lane). `base` points at element (row 0, col 0) of the tile; ld is the
-// row stride.
-// A 16x16 from row-major [m][k] storage.
-__device__ __forceinline__ const bf16* a_rows(const bf16* base, int ld, int lane) {
-  return base + (lane & 15) * ld + (lane >> 4) * 8;
-}
-// A 16x16 from [k][m] storage (the transposed operand), with ldsm_x4_t.
-__device__ __forceinline__ const bf16* a_cols(const bf16* base, int ld, int lane) {
-  return base + ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
-}
-// B of two n8 tiles, k16, from [k][n] storage, with ldsm_x4_t: r[0], r[1]
-// for columns n0..n0+7, r[2], r[3] for n0+8..n0+15. With ldsm_x2_t (lanes
-// 0-15) one n8 tile.
-__device__ __forceinline__ const bf16* b_kn(const bf16* base, int ld, int lane) {
-  return base + (lane & 15) * ld + (lane >> 4) * 8;
-}
-// B of two n8 tiles, k16, from [n][k] storage, with ldsm_x4: r[0], r[1]
-// for rows n0..n0+7, r[2], r[3] for n0+8..n0+15.
-__device__ __forceinline__ const bf16* b_nk(const bf16* base, int ld, int lane) {
-  return base + ((lane & 7) + ((lane >> 4) & 1) * 8) * ld + ((lane >> 3) & 1) * 8;
-}
-// B of four n8 tiles, k8, from [n][k] storage, with ldsm_x4 (or of two
-// with ldsm_x2): r[i] for rows n0 + 8i.. n0 + 8i + 7.
-__device__ __forceinline__ const bf16* b_nk8(const bf16* base, int ld, int lane) {
-  return base + lane * ld;
-}
 
 // The 4 keep bits of the lane's elements of one n8 tile of probabilities
 // (rows r0 + g and r0 + g + 8, columns c0 + 2t and c0 + 2t + 1, g = lane/4,

@@ -44,6 +44,7 @@ from ..device import resolve_device
 from ..ops.fused_attention import KEYS as ATTN_KEYS
 from ..ops.fused_attention import fused_attention, fused_attention2, fused_attention_reference
 from ..ops.fused_output import fused_output
+from .gather import gather_rows
 
 
 def _decoder_plan(cfg: ModelConfig) -> list[tuple[int, int, int, int]]:
@@ -320,7 +321,7 @@ def features(
     codes = codes[:, :S].long()
     dt = torch.bfloat16 if cfg.bf16_frontend else torch.float32
 
-    x = params["embedding"].to(dt)[codes]  # [B, S, E]
+    x = gather_rows(params["embedding"].to(dt), codes)  # [B, S, E]
     x = _dropout(x, cfg.dropout_rate, generator, train, cfg.bits_dropout)
     x = x + params["pos"].to(dt)[:S]
 

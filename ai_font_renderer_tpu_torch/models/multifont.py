@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from ..device import resolve_device
+from .gather import gather_rows
 from .siren import grid_coords
 
 
@@ -76,7 +77,8 @@ def init(
 def apply(params, font_ids: torch.Tensor, char_ids: torch.Tensor, coords: torch.Tensor,
           cfg: MultiFontConfig) -> torch.Tensor:
     """[B] fonts x [B] chars x [B, P, 2] coords in [-1, 1]^2 -> [B, P]."""
-    cond = torch.cat([params["char_embed"][char_ids.long()], params["font_embed"][font_ids.long()]], dim=-1)
+    cond = torch.cat([gather_rows(params["char_embed"], char_ids.long()),
+                      gather_rows(params["font_embed"], font_ids.long())], dim=-1)
     h = torch.sin(cfg.w0_first * (coords @ params["w_in"] + params["b_in"]))
     for i in range(cfg.n_layers):
         film = cond @ params[f"film_w_{i}"] + params[f"film_b_{i}"]  # [B, 2H]

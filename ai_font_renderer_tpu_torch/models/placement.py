@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ..config import ModelConfig, SheetSpec
 from ..device import resolve_device
 from . import font_renderer
+from .gather import gather_rows
 
 
 def init(
@@ -118,8 +119,9 @@ def structured_x(
     ``detach`` stops gradients at the structure probabilities. Slot 0 has
     no predecessor: its kern is 0. codes [B, S] -> x [B, S]."""
     codes = codes.long()
-    adv = params["place_adv"][codes]  # [B, S]
-    kern = params["place_kern"][codes[:, :-1], codes[:, 1:]]  # [B, S-1]
+    adv = gather_rows(params["place_adv"], codes)  # [B, S]
+    kern_table = params["place_kern"]  # [V, V]: the pair (a, b) at a * V + b
+    kern = gather_rows(kern_table.reshape(-1), codes[:, :-1] * kern_table.shape[1] + codes[:, 1:])
     kern = F.pad(kern, (1, 0))
     if detach:
         contrib_logit, line_log = contrib_logit.detach(), line_log.detach()

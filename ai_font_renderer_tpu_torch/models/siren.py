@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from ..device import resolve_device
+from .gather import gather_rows
 
 
 @dataclass(frozen=True)
@@ -79,7 +80,7 @@ def apply(params, char_ids: torch.Tensor, coords: torch.Tensor, cfg: SirenConfig
     else:
         def mm(a, b):
             return a @ b
-    emb = params["embed"][char_ids.long()]  # [B, E]
+    emb = gather_rows(params["embed"], char_ids.long())  # [B, E]
     h = torch.sin(cfg.w0_first * (mm(coords, params["w_in"]) + params["b_in"]))
     for i in range(cfg.n_layers):
         film = mm(emb, params[f"film_w_{i}"]) + params[f"film_b_{i}"]  # [B, 2H]

@@ -11,8 +11,10 @@ from .fused_attention import (
     attention_mma_attributes,
     attention_mma_bwd,
     attention_mma_fwd,
+    attention_wide_attributes,
     attention_wide_bwd,
     attention_wide_fwd,
+    attention_wide_plan,
     fused_attention,
     fused_attention2,
     fused_attention2_backward,
@@ -54,8 +56,10 @@ __all__ = [
     "attention_mma_attributes",
     "attention_mma_bwd",
     "attention_mma_fwd",
+    "attention_wide_attributes",
     "attention_wide_bwd",
     "attention_wide_fwd",
+    "attention_wide_plan",
     "bf16_shadow",
     "dx_operands_reference",
     "fused_attention",

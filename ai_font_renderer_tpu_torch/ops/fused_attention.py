@@ -12,8 +12,13 @@ csrc/attention_mma.cu (``attention_mma_fwd``, ``attention_mma_bwd``), f32
 the CUDA-core kernels of csrc/fused_attention.cu (one cluster of H blocks
 a sample, a block a head; f32 products on tensor cores would be TF32).
 Every other shape takes the general kernels of csrc/attention_wide.cu
-(``attention_wide_fwd``, ``attention_wide_bwd``: tiled GEMMs and a warp a
-row), in either dtype, as the TPU kernels take any E and S. Either way:
+(``attention_wide_fwd``, ``attention_wide_bwd``), in either dtype, as the
+TPU kernels take any E and S: where a sample fits one block
+(``attention_wide_plan``: S <= 512 and its tiles within the block's shared
+memory) the on-chip build, a block a sample with every intermediate in
+shared memory, bf16 products on the tensor cores and f32 ones on the CUDA
+cores, in one launch; past that the streamed build (tiled GEMMs through
+an f32 workspace, a warp a row). Either way:
 
 * v1 (``fused_attention``): forward K5 (``_fwd_kernel``), backward K6
   (``_bwd_kernel``), which regenerates the dropout mask from the seed;
@@ -72,7 +77,8 @@ _WIDE_SIGNATURES = {
         [_P] * 15 + [_I] * 6 + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, _P], _I,
     ),
     "afr_attention_wide_shape_ok": ([_I, _I, _I], _I),
-    "afr_attention_wide_work_floats": ([_I] * 5, ctypes.c_longlong),
+    "afr_attention_wide_plan": ([_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)], _I),
+    "afr_attention_wide_work_floats": ([_I] * 6, ctypes.c_longlong),
 }
 _MMA_SIGNATURES = {
     "afr_attention_mma_fwd": ([_P] * 12 + [_I] * 5 + [ctypes.c_uint, ctypes.c_float, _P], _I),
@@ -466,9 +472,78 @@ def _check_wide(x, weights, heads):
 
 
 def _workspace(lib, x, heads, backward):
+    """The streamed build's f32 workspace, or None where the on-chip build
+    takes the shape (it needs none)."""
     B, S, E = x.shape
-    n = lib.afr_attention_wide_work_floats(B, S, E, heads, int(backward))
-    return torch.empty(n, dtype=torch.float32, device=x.device)
+    n = lib.afr_attention_wide_work_floats(B, S, E, heads, int(x.dtype == torch.bfloat16), int(backward))
+    return torch.empty(n, dtype=torch.float32, device=x.device) if n else None
+
+
+# The on-chip build of csrc/attention_wide.cu: query rows a chunk at most,
+# keys at most (a row in registers), threads a block (forward, backward).
+_WIDE_MAX_CHUNK = 64
+_WIDE_MAX_S = 512
+_WIDE_THREADS = (256, 512)
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _pitch(n: int, unit: int) -> int:
+    return n if (n // unit) % 2 else n + unit
+
+
+def _wide_bytes(S: int, E: int, heads: int, bf16: bool, backward: bool, Q: int) -> int:
+    """Shared memory of one block of the on-chip build with chunks of Q
+    query rows: the regions of csrc/attention_wide.cu ``plan_of``, each on
+    16 bytes."""
+    unit, t, d = (8, 2, E // heads) if bf16 else (4, 4, E // heads)
+    Sp, Ep, dp = _round_up(S, 16 if bf16 else 4), _round_up(E, 16 if bf16 else 4), _round_up(d, unit)
+    HDp = heads * dp
+    ldE, ldD, ldHD = _pitch(Ep, unit), _pitch(dp, unit), _pitch(HDp, unit)
+    ldL, ldP, ldEf, ldDf = _pitch(Sp, 4), _pitch(Sp, 8), _pitch(Ep, 4), _pitch(dp, 4)
+    sizes = [Sp * ldE * t, Q * S, (2 if backward else 1) * Q * ldP * 2 if bf16 else 0]
+    if backward:
+        sizes += [Sp * ldE * t, 3 * Ep * ldD * t + dp * ldE * t, 8 * Sp * ldD * t, Sp * ldEf * 4,
+                  2 * Sp * ldDf * 4 if S > Q else 0, 2 * Q * ldL * 4]
+    else:
+        sizes += [Sp * ldHD * t, 3 * Ep * ldD * t, 3 * Sp * ldD * t, max(Q * ldL * 4, HDp * ldE * t)]
+    return sum(_round_up(n, 16) for n in sizes)
+
+
+def attention_wide_plan(S: int, E: int, heads: int, dtype: torch.dtype, backward: bool) -> dict:
+    """Which build of csrc/attention_wide.cu takes x [*, S, E] of ``dtype``
+    with ``heads`` heads, forward or ``backward``, as its ``chunk_rows``
+    decides: ``rows``, the query rows of one chunk of the on-chip build (a
+    multiple of 16 up to 64, the most whose block fits the 232,448 bytes of
+    shared memory), with its ``smem_bytes`` and ``threads``; ``rows`` 0
+    where 16 rows do not fit or S > 512, and the streamed build runs.
+    Loads no library."""
+    bf16 = dtype == torch.bfloat16
+    for Q in range(_round_up(min(S, _WIDE_MAX_CHUNK), 16) if S <= _WIDE_MAX_S else 0, 0, -16):
+        need = _wide_bytes(S, E, heads, bf16, backward, Q)
+        if need <= _SMEM_LIMIT:
+            return {"rows": Q, "smem_bytes": need, "threads": _WIDE_THREADS[int(backward)]}
+    return {"rows": 0, "smem_bytes": 0, "threads": 0}
+
+
+def attention_wide_attributes(S: int = 100, E: int = 64, heads: int = 8) -> dict:
+    """The general kernels' builds as the library plans them at this shape,
+    for each dtype and direction: query rows a chunk (0: the streamed
+    build), shared memory bytes, threads and blocks an SM of the on-chip
+    block."""
+    lib = _build.load("attention_wide", _WIDE_SIGNATURES)
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        for backward in (0, 1):
+            vals = (ctypes.c_longlong * 4)()
+            rc = lib.afr_attention_wide_plan(S, E, heads, int(dt == "bfloat16"), backward, vals)
+            if rc != 0:
+                raise RuntimeError(f"general attention plan at S={S}, E={E}, H={heads}: CUDA error {rc}")
+            keys = ("rows", "smem_bytes", "threads", "blocks_per_sm")
+            out[f"{('fwd', 'bwd')[backward]}_{dt}"] = dict(zip(keys, vals))
+    return out
 
 
 def attention_wide_fwd(x, weights, heads: int, dropout_rate: float = 0.0, seed=None, store_mask: bool = False):
@@ -476,7 +551,8 @@ def attention_wide_fwd(x, weights, heads: int, dropout_rate: float = 0.0, seed=N
     bf16: the general build of K5 and of K7 (``store_mask``: the keep mask
     is stored, uint8 [B, H, S, S]). x [B, S, E] -> (out, mask or None). On
     a CPU tensor the plain version. ``attention_wide_fwd.launches`` counts
-    its launches."""
+    its calls (one kernel launch each where ``attention_wide_plan`` takes
+    the shape on chip)."""
     _check_seed(seed, x, dropout_rate)
     rate = float(dropout_rate)
     if x.device.type == "cpu":
@@ -493,7 +569,7 @@ def attention_wide_fwd(x, weights, heads: int, dropout_rate: float = 0.0, seed=N
         rc = lib.afr_attention_wide_fwd(
             x.data_ptr(), *(weights[k].data_ptr() for k in KEYS), out.data_ptr(),
             mask.data_ptr() if mask is not None else None, seed.data_ptr() if mode else None,
-            work.data_ptr(), B, S, E, heads, int(x.dtype == torch.bfloat16), mode,
+            work.data_ptr() if work is not None else None, B, S, E, heads, int(x.dtype == torch.bfloat16), mode,
             keep_threshold(rate) if mode else 0, keep_in(rate, x.dtype) if mode else 1.0,
             _build.stream_handle(x.device),
         )
@@ -514,6 +590,7 @@ def attention_wide_bwd(x, g, weights, heads: int, dropout_rate: float = 0.0, see
         return _plain_backward(x, g, weights, heads, rate, seed, mask)
     lib = _check_wide(x, weights, heads)
     g = _check_backward(x, g, heads, mask)
+    mask = _aligned(mask) if mask is not None else None  # read as 32-bit words
     mode = _mode(rate, mask is not None)
     if mode == 1:
         _check_seed(seed, x, rate)
@@ -527,7 +604,7 @@ def attention_wide_bwd(x, g, weights, heads: int, dropout_rate: float = 0.0, see
         rc = lib.afr_attention_wide_bwd(
             x.data_ptr(), g.data_ptr(), *(weights[k].data_ptr() for k in KEYS),
             mask.data_ptr() if mode == 2 else None, seed.data_ptr() if mode == 1 else None,
-            dx.data_ptr(), partials.data_ptr(), work.data_ptr(), B, S, E, heads,
+            dx.data_ptr(), partials.data_ptr(), work.data_ptr() if work is not None else None, B, S, E, heads,
             int(x.dtype == torch.bfloat16), mode, keep_threshold(rate) if mode else 0,
             keep_in(rate, x.dtype), float(np.float32(1.0 - rate)), _build.stream_handle(x.device),
         )

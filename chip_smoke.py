@@ -278,7 +278,12 @@ def _attn_peak(dt) -> float:
 
 
 def phase_build() -> float:
-    from ai_font_renderer_tpu_torch.ops import _build, attention_mma_attributes, fused_attention_attributes
+    from ai_font_renderer_tpu_torch.ops import (
+        _build,
+        attention_mma_attributes,
+        attention_wide_attributes,
+        fused_attention_attributes,
+    )
     from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import dw_adamw_attributes
     from ai_font_renderer_tpu_torch.ops.fused_output import gemm_attributes
 
@@ -300,6 +305,10 @@ def phase_build() -> float:
           f"{json.dumps(attention_mma_attributes())}", flush=True)
     print(f"[build] f32 attention (K5-K8 in f32, CUDA cores, a cluster of H blocks a sample) at "
           f"S=100, E=32, H=4: {json.dumps(fused_attention_attributes())}", flush=True)
+    for s, e, heads in WIDE_SHAPES + tuple(shape for shape, _ in WIDE_EXTRA):
+        print(f"[build] general attention (K5-K8 at other shapes) at S={s}, E={e}, H={heads}: rows a chunk of "
+              f"the on-chip build (0: streamed), shared memory, threads, blocks an SM: "
+              f"{json.dumps(attention_wide_attributes(s, e, heads))}", flush=True)
     print(f"[build] kernels built in {seconds:.2f} s", flush=True)
     return seconds
 
@@ -978,8 +987,11 @@ def check_attention_backward(bsz=1024, s=100, e=32, heads=4) -> tuple[list[dict]
 
 # The general attention kernels' shapes in the kernel checks and on the
 # main path: E = 64 (head width 16) and S = 129, each past both
-# register-tiled kernels.
+# register-tiled kernels, in both dtypes; and (WIDE_EXTRA) the placement
+# net's E = 64, H = 8 in bf16 (phase 10 times it in f32) and a head width
+# of 24, not a power of two, in both.
 WIDE_SHAPES = ((100, 64, 4), (129, 32, 4))
+WIDE_EXTRA = (((100, 64, 8), (torch.bfloat16,)), ((100, 48, 2), (torch.float32, torch.bfloat16)))
 # The general kernels' bf16 forward against the plain one, relative to the
 # largest |plain| value as the backward's: q, k, v and out are rounded once
 # here and twice (after the product, after the bias) in the plain version,
@@ -987,7 +999,7 @@ WIDE_SHAPES = ((100, 64, 4), (129, 32, 4))
 WIDE_FWD_BF16_REL_TOL = 2e-2
 
 
-def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES, dtypes=(torch.float32, torch.bfloat16)
+def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES, dtypes=(torch.float32, torch.bfloat16), extra=WIDE_EXTRA
                          ) -> tuple[list[dict], list[dict]]:
     """The general attention kernels (csrc/attention_wide.cu) at the shapes
     the register-tiled ones do not take, at dropout 0.2, in ``dtypes``: the
@@ -995,10 +1007,13 @@ def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES, dtypes=(torch.float32, to
     against the plain forward fed the plain mask, the stored mask byte for
     byte; the backward with the mask read (K8's) and regenerated (K6's)
     against fused_attention_backward_reference within ATTN_BWD_TOL, the
-    two giving the same bits."""
+    two giving the same bits; then the ``extra`` shapes in their own
+    dtypes. Each row carries the build's plan (query rows a chunk, 0 for
+    the streamed build)."""
     from ai_font_renderer_tpu_torch.ops.fused_attention import (
         attention_wide_bwd,
         attention_wide_fwd,
+        attention_wide_plan,
         fused_attention_backward_reference,
         fused_attention_reference,
     )
@@ -1007,11 +1022,11 @@ def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES, dtypes=(torch.float32, to
     g = torch.Generator(device="cuda").manual_seed(14)
     seed = torch.tensor([11], dtype=torch.int32, device="cuda")
     fwd_rows, bwd_rows = [], []
-    for s, e, heads in shapes:
+    for (s, e, heads), dts in [(shape, dtypes) for shape in shapes] + list(extra):
         w = _attn_weights(g, e)
         mask_shape = (bsz, heads, s, s)
         mask = dropout_keep(seed, mask_shape, DROPOUT).to(torch.uint8)
-        for dt in dtypes:
+        for dt in dts:
             x = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
             gy = torch.randn(bsz, s, e, generator=g, device="cuda").to(dt)
             drawn, _ = attention_wide_fwd(x, w, heads, DROPOUT, seed)
@@ -1055,6 +1070,7 @@ def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES, dtypes=(torch.float32, to
             fwd_ms = time_ms(lambda: attention_wide_fwd(x, w, heads, DROPOUT, seed, True), 20)
             row = {
                 "shape": tag, "max_abs_err": err, "tol": tol, "mask_equal": masks_equal,
+                "chunk_rows": attention_wide_plan(s, e, heads, dt, False)["rows"],
                 "ms": fwd_ms,
                 "plain_ms": time_ms(lambda: fused_attention_reference(
                     x, w, heads, mask=dropout_keep(seed, mask_shape, DROPOUT), rate=DROPOUT), 5),
@@ -1069,6 +1085,7 @@ def check_attention_wide(bsz=1024, shapes=WIDE_SHAPES, dtypes=(torch.float32, to
                 "shape": tag,
                 "max_abs_err": float((k6[0].float() - want_dx.float()).abs().max()),
                 "dx_rel_err": dx_rel, "dw_rel_err": w_rel, "tol": f"{btol} of max |plain|",
+                "chunk_rows": attention_wide_plan(s, e, heads, dt, True)["rows"],
                 "ms": bwd_ms,
                 "plain_ms": time_ms(lambda: fused_attention_backward_reference(
                     x, gy, w, heads, DROPOUT, mask), 5),
@@ -3118,9 +3135,8 @@ def phase_export(workdir: str, card: str, atlas_gps: float, serve_latency: dict)
 # takes the general attention build; the CLI's default dims (E 32, H 4,
 # hidden 64) the register-tiled f32 cluster kernels.
 PLACEMENT_DIMS = {"E64,H8,hidden128": (64, 8, 128), "E32,H4,hidden64": (32, 4, 64)}
-# A resumed fine-tune against the uninterrupted one: the last pixel MSE
-# within this of each other, relative (the files are also compared, and
-# whether they are bit-equal is printed).
+# A resumed fine-tune against the uninterrupted one: the tuned files
+# bit-equal, and the last pixel MSE within this of each other, relative.
 RESUME_REL_TOL = 1e-4
 
 
@@ -3193,8 +3209,11 @@ def _placement_chain(workdir: str, card: str) -> tuple[dict, dict]:
           f"last pixel MSE {again['finetune_pixel_mse_last']} vs {tuned['finetune_pixel_mse_last']} (rel {last_rel:.3g}, "
           f"tol {RESUME_REL_TOL}); first {again['finetune_pixel_mse_first']} vs {tuned['finetune_pixel_mse_first']}",
           flush=True)
-    if not (last_rel <= RESUME_REL_TOL and again["finetune_pixel_mse_first"] == tuned["finetune_pixel_mse_first"]):
-        raise AssertionError("the resumed fine-tune does not agree with the uninterrupted one")
+    # The resume replays the run: the tuned files bit-equal (the gathers'
+    # and the kernels' backward sum in a fixed order on the card).
+    if not (last_rel <= RESUME_REL_TOL and again["finetune_pixel_mse_first"] == tuned["finetune_pixel_mse_first"]
+            and all(equal for equal, _ in diffs.values())):
+        raise AssertionError("the resumed fine-tune does not replay the uninterrupted one")
 
     for font, dims, kernels, extra in (("montserrat", wide, "attention_v2", ["--structured"]),
                                        ("firacode", ["--line-head", "5", "--batch", "1024"], "attention", [])):
@@ -3372,10 +3391,45 @@ def _implicit_trainers(card: str) -> dict:
     return rates
 
 
+def _embedding_backward_forms(card: str) -> dict:
+    """10d: the embedding gathers' backward on the card at batch 1024,
+    S 100, a 128-row table, the codes of 1024 corpus strings (a few rows,
+    the space first, take most of them), in two forms: the index form that
+    models/gather.py takes on the card (index_put_ with accumulation) and
+    F.embedding, which it takes on the CPU. Device ms of the gather's
+    forward and backward, and whether three runs give the same bits; the
+    card's form must."""
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.fontgen.textgen import generate_corpus
+    from ai_font_renderer_tpu_torch.models.gather import gather_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    codes = torch.from_numpy(encode_codes(generate_corpus(1024, base_seed=15), 100)).long().cuda()
+    rows = {}
+    for tag, e, dt in (("flagship E32 f32", 32, torch.float32), ("flagship E32 bf16", 32, torch.bfloat16),
+                       ("placement E64 f32", 64, torch.float32)):
+        table = torch.randn(128, e, generator=gen, device="cuda").requires_grad_()
+        cot = torch.randn(1024, 100, e, generator=gen, device="cuda").to(dt)
+        for form, gather in (("index, the card's", lambda t, dt=dt: gather_rows(t.to(dt), codes)),
+                             ("F.embedding", lambda t, dt=dt: torch.nn.functional.embedding(codes, t.to(dt)))):
+            def run(gather=gather, cot=cot, table=table):
+                return torch.autograd.grad(gather(table), table, cot)[0]
+
+            grads = [run() for _ in range(3)]
+            rows[f"{tag}, {form}"] = {"ms": time_ms(run, 20),
+                                      "deterministic": all(torch.equal(grads[0], g) for g in grads[1:])}
+    print(f"[placement] embedding gathers' forward + backward at B=1024, S=100 (corpus codes), 128 rows, device ms and "
+          f"whether 3 runs give the same bits: {json.dumps(rows)} ({card})", flush=True)
+    if not all(v["deterministic"] for k, v in rows.items() if "card" in k):
+        raise AssertionError(f"the card's gather backward is not deterministic: {rows}")
+    return rows
+
+
 def phase_placement(workdir: str, card: str) -> tuple[dict, list[dict], list[dict]]:
     """Phase 10: placement and implicit training -> (the launches of the
     CLI runs, the general attention's forward and backward rows at the
-    placement net's training shape)."""
+    placement net's training shape); then the embedding gathers' backward
+    forms."""
     seconds = {}
     t0 = time.perf_counter()
     counts, rates = _placement_chain(workdir, card)
@@ -3387,8 +3441,11 @@ def phase_placement(workdir: str, card: str) -> tuple[dict, list[dict], list[dic
     rates.update(_implicit_trainers(card))
     seconds["implicit_trainers"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    fwd_rows, bwd_rows = check_attention_wide(shapes=((100, 64, 8),), dtypes=(torch.float32,))
+    fwd_rows, bwd_rows = check_attention_wide(shapes=((100, 64, 8),), dtypes=(torch.float32,), extra=())
     seconds["general_attention"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _embedding_backward_forms(card)
+    seconds["embedding_backward"] = time.perf_counter() - t0
     print(f"[placement] rates {json.dumps({k: round(v, 3) for k, v in rates.items()})} ({card})", flush=True)
     print(f"[placement] seconds by check: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
     return counts, fwd_rows, bwd_rows

@@ -39,7 +39,7 @@ from ai_font_renderer_tpu_torch.ops import (
     fused_attention_reference,
     fused_dw_adamw_xt,
 )
-from ai_font_renderer_tpu_torch.ops.fused_attention import kernel_takes
+from ai_font_renderer_tpu_torch.ops.fused_attention import _wide_bytes, attention_wide_plan, kernel_takes
 from ai_font_renderer_tpu_torch.ops import philox
 from ai_font_renderer_tpu_torch.train import step as tstep
 
@@ -498,6 +498,8 @@ F32, BF16 = torch.float32, torch.bfloat16
         ((113, 32, 4), F32, True),
         ((100, 64, 4), F32, False),  # E above 32
         ((100, 64, 8), BF16, False),
+        ((100, 64, 8), F32, False),  # the placement net's capacity
+        ((100, 48, 2), F32, False),  # head width 24
         ((100, 32, 1), F32, True),  # head widths 32, 16 and 8
         ((100, 32, 2), BF16, True),
         ((100, 24, 3), F32, True),
@@ -516,9 +518,62 @@ def test_kernel_takes_states_the_kernels_rules(shape, dtype, taken):
     assert kernel_takes(S, E, heads, dtype) is taken
 
 
-# (B, S, E, H) beyond the register-tiled kernels: S = 129, E = 64 and a
-# head width of 4, which the JAX kernels take as they take any other.
-WIDE_SHAPES = {"S129": (2, 129, 32, 4), "E64": (2, 20, 64, 4), "d4": (2, 9, 32, 8)}
+@pytest.mark.parametrize(
+    "shape,dtype,backward,rows,smem",
+    [
+        ((100, 64, 8), F32, True, 64, 198592),  # placement training: two chunks of query rows
+        ((100, 64, 8), F32, False, 64, 110016),  # two blocks an SM
+        ((100, 64, 8), BF16, True, 64, 188544),
+        ((100, 64, 4), F32, True, 48, 224512),
+        ((129, 32, 4), F32, True, 64, 201984),  # three chunks, the last of one row
+        ((100, 48, 2), F32, True, 32, 224320),  # head width 24
+        ((152, 64, 8), F32, True, 16, 230784),  # the f32 backward's longest S at E = 64, H = 8
+        ((153, 64, 8), F32, True, 0, 0),  # past it: the streamed build
+        ((224, 64, 8), BF16, True, 16, 227456),
+        ((225, 64, 8), BF16, True, 0, 0),
+        ((44, 64, 1), F32, True, 48, 220288),  # head width 64
+        ((45, 64, 1), F32, True, 0, 0),
+        ((300, 64, 1), F32, False, 0, 0),
+        ((512, 16, 2), BF16, False, 32, 190208),  # the longest row the row passes hold in registers
+        ((513, 16, 2), BF16, False, 0, 0),
+        ((1, 8, 1), F32, True, 16, 4176),
+    ],
+)
+def test_wide_plan_states_the_on_chip_cutoff(shape, dtype, backward, rows, smem):
+    """Which build of the general kernels takes a shape: the on-chip one
+    with chunks of ``rows`` query rows where S <= 512 and its block fits
+    232,448 bytes of shared memory, else (rows 0) the streamed one. tests/test_torch_cuda.py
+    holds this mirror equal to the library's own plan."""
+    S, E, heads = shape
+    plan = attention_wide_plan(S, E, heads, dtype, backward)
+    assert (plan["rows"], plan["smem_bytes"]) == (rows, smem)
+    assert plan["threads"] == (0 if not rows else 512 if backward else 256)
+
+
+def test_wide_plan_takes_the_most_rows_that_fit():
+    """Over a grid of shapes: rows a multiple of 16 up to 64 and S rounded
+    up to 16; the plan fits one block's shared memory and 16 more rows
+    would not (or it already has 64, or all of S)."""
+    checked = 0
+    for S in (1, 15, 16, 17, 63, 64, 65, 100, 129, 200, 400, 600):
+        for E, heads in ((64, 8), (64, 4), (48, 2), (36, 3), (64, 1), (128, 8)):
+            for dtype in (F32, BF16):
+                for backward in (False, True):
+                    plan = attention_wide_plan(S, E, heads, dtype, backward)
+                    q, most = plan["rows"], min(64, -(-S // 16) * 16) if S <= 512 else 0
+                    if q:
+                        assert q % 16 == 0 and q <= most and plan["smem_bytes"] <= 232448
+                    if q < most:
+                        assert _wide_bytes(S, E, heads, dtype == BF16, backward, q + 16) > 232448
+                    checked += 1
+    assert checked == 12 * 6 * 4
+
+
+# (B, S, E, H) beyond the register-tiled kernels: S = 129, E = 64, a head
+# width of 4, the placement net's E = 64 with 8 heads and a head width of
+# 24, which the JAX kernels take as they take any other.
+WIDE_SHAPES = {"S129": (2, 129, 32, 4), "E64": (2, 20, 64, 4), "d4": (2, 9, 32, 8), "E64H8": (2, 100, 64, 8),
+               "d24": (2, 30, 48, 2)}
 
 
 @pytest.mark.parametrize("entry", ["v1", "v2"])

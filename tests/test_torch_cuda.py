@@ -17,6 +17,7 @@ from ai_font_renderer_tpu_torch.ops import (
     attention_mma_fwd,
     attention_wide_bwd,
     attention_wide_fwd,
+    attention_wide_plan,
     bf16_shadow,
     fused_attention,
     fused_attention2,
@@ -889,18 +890,7 @@ WIDE_SHAPES = [(2, 129, 32, 4), (3, 100, 64, 4), (2, 37, 32, 8), (3, 61, 36, 3),
                (4, 100, 32, 4)]
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("bsz,s,e,heads", WIDE_SHAPES)
-def test_general_attention_kernels_match_plain(cuda, rate, dtype, bsz, s, e, heads):
-    """The general forward and backward against the plain versions fed the
-    plain mask (forward: 1e-4 in f32; in bf16 2e-2 of the largest |plain|
-    value, since q, k, v and out round once here and twice in the plain
-    version, and at S = 300, E = 64 an output of 2.25 lies 4 bf16 steps
-    away; backward: BWD_TOL); the stored
-    mask equals the plain mask byte for byte; the mask drawn and the mask
-    stored give the same bits, forward and backward, and so does a second
-    run; each call launches its kernel once."""
+def _check_general_against_plain(cuda, rate, dtype, bsz, s, e, heads):
     x, w = _attn_inputs(bsz, s, e, cuda, dtype, seed=s + e)
     g = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda).to(dtype)
     seed = _seed(cuda)
@@ -920,6 +910,60 @@ def test_general_attention_kernels_match_plain(cuda, rate, dtype, bsz, s, e, hea
     _assert_grads_close(k6, fused_attention_backward_reference(x, g, w, heads, rate, want_mask), BWD_TOL[dtype])
     for other in (k8, again):
         assert torch.equal(k6[0], other[0]) and all(torch.equal(k6[1][k], other[1][k]) for k in KEYS)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bsz,s,e,heads", WIDE_SHAPES)
+def test_general_attention_kernels_match_plain(cuda, rate, dtype, bsz, s, e, heads):
+    """The general forward and backward against the plain versions fed the
+    plain mask (forward: 1e-4 in f32; in bf16 2e-2 of the largest |plain|
+    value, since q, k, v and out round once here and twice in the plain
+    version, and at S = 300, E = 64 an output of 2.25 lies 4 bf16 steps
+    away; backward: BWD_TOL); the stored
+    mask equals the plain mask byte for byte; the mask drawn and the mask
+    stored give the same bits, forward and backward, and so does a second
+    run; each call launches its kernel once."""
+    _check_general_against_plain(cuda, rate, dtype, bsz, s, e, heads)
+
+
+# (B, S, E, H) that the on-chip build takes in both directions and dtypes:
+# S = 129 (a Philox block straddles two rows, three chunks in f32), and
+# head widths 8 (the placement net), 24 and 64.
+ON_CHIP_SHAPES = {"S129": (3, 129, 32, 4), "d8": (3, 100, 64, 8), "d24": (3, 100, 48, 2), "d64": (2, 40, 64, 1)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(ON_CHIP_SHAPES.values()), ids=list(ON_CHIP_SHAPES))
+def test_on_chip_general_kernels_match_plain(cuda, rate, dtype, shape):
+    """The general kernels' on-chip build (its plan takes both directions at
+    these shapes) against the plain versions, as
+    test_general_attention_kernels_match_plain holds them."""
+    bsz, s, e, heads = shape
+    for backward in (False, True):
+        assert attention_wide_plan(s, e, heads, dtype, backward)["rows"] > 0
+    _check_general_against_plain(cuda, rate, dtype, bsz, s, e, heads)
+
+
+def test_wide_plan_equals_the_librarys(cuda):
+    """The Python mirror of the general kernels' plan (rows a chunk, shared
+    memory, threads) against afr_attention_wide_plan over a grid of shapes
+    on both sides of the on-chip cutoff; an on-chip block fits an SM."""
+    from ai_font_renderer_tpu_torch.ops.fused_attention import attention_wide_attributes
+
+    checked = 0
+    for S in (1, 37, 100, 129, 152, 153, 224, 225, 300, 513):
+        for E, H in ((64, 8), (64, 4), (32, 4), (48, 2), (64, 1), (36, 3)):
+            lib = attention_wide_attributes(S, E, H)
+            for dt in (torch.float32, torch.bfloat16):
+                for backward in (False, True):
+                    want = lib[f"{('fwd', 'bwd')[backward]}_{str(dt).replace('torch.', '')}"]
+                    got = attention_wide_plan(S, E, H, dt, backward)
+                    assert got == {k: want[k] for k in got}, (S, E, H, dt, backward)
+                    assert want["blocks_per_sm"] >= 1 if got["rows"] else want["blocks_per_sm"] == 0
+                    checked += 1
+    assert checked == 10 * 6 * 4
 
 
 @pytest.mark.parametrize("stored", [False, True], ids=["v1", "v2"])
@@ -999,6 +1043,32 @@ def test_kernel_takes_equals_the_libraries_rules(cuda):
                 assert bool(wide.afr_attention_wide_shape_ok(S, E, H)) is (E % H == 0)
                 checked += 1
     assert checked == 11 * 7 * 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gather_rows_backward_is_deterministic_on_the_card(cuda, dtype):
+    """The embedding gathers' backward on the card (models/gather.py, the
+    index form's sorted reduction) gives the same bits in three runs at the
+    flagship's training batch (B 1024, S 100), for the placement net's
+    E 64 table in the frontend's dtype and the 1-D advance table; in f32
+    the values of F.embedding's backward, to sums in another order."""
+    from ai_font_renderer_tpu_torch.models.gather import gather_rows
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    codes = torch.randint(0, 128, (1024, 100), generator=gen, device=cuda)
+    for shape in ((128, 64), (128,)):
+        table = torch.randn(shape, generator=gen, device=cuda)
+        cot = torch.randn(codes.shape + shape[1:], generator=gen, device=cuda).to(dtype)
+        runs = []
+        for _ in range(3):
+            t = table.clone().requires_grad_()
+            gather_rows(t.to(dtype), codes).backward(cot)
+            runs.append(t.grad)
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+        if dtype == torch.float32:
+            t = table.clone().requires_grad_()
+            torch.nn.functional.embedding(codes, t.reshape(128, -1)).backward(cot.reshape(1024, 100, -1))
+            torch.testing.assert_close(runs[0].reshape(128, -1), t.grad.reshape(128, -1), atol=1e-3, rtol=1e-4)
 
 
 # --- the data path on the card ----------------------------------------------
