@@ -43,8 +43,11 @@ picks the training configuration: ``none`` (the JAX package's defaults, no
 kernel), ``output`` (``use_pallas_output``: K1 forward, K2/K3 backward) or
 ``fused`` (``use_pallas_output`` + ``fused_dw_adamw``: K1, K2 and K4); the
 last two are kernels of the linear decoder's projection and exit 1 with a
-conv decoder. ``--mesh`` other than one device needs a later slice of the
-port and exits 1 with a message that says so.
+conv decoder. ``--mesh DATA,MODEL`` trains on a device mesh (parallel/):
+the batch splits DATA ways, the output projection's columns MODEL ways;
+with DATA x MODEL above 1 the CLI starts that many ranks of itself, one a
+visible card (NCCL), or with ``--device cpu`` CPU ranks (gloo), and rank 0
+writes what the one-device run writes. ``--mesh 1,1`` is the one-device run.
 """
 
 from __future__ import annotations
@@ -638,9 +641,10 @@ def _subcommands(argv: list[str]) -> int:
     return commands[args.cmd](args)
 
 
-def run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=False, device=None):
+def run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=False, device=None, mesh=None):
     """Build the device dataset from ``font`` (monospace or proportional)
-    and train; -> TrainResult."""
+    and train, on ``mesh`` (a rank's parallel.Mesh) if given; ->
+    TrainResult."""
     from .device import resolve_device
     from .train import train
 
@@ -652,7 +656,7 @@ def run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=
     print(f"Using batch size {tcfg.batch_size}")
     return train(
         ds, mcfg, tcfg, output_dir=output_dir, eval_strings=TEST_STRINGS,
-        checkpoint_dir=checkpoint_dir, resume=resume,
+        checkpoint_dir=checkpoint_dir, resume=resume, mesh=mesh,
     )
 
 
@@ -687,8 +691,9 @@ def _train_parser() -> argparse.ArgumentParser:
                         "(resize + conv pyramid) or conv_ps (pixel-shuffle conv pyramid)")
     parser.add_argument("--decoder-channels", default=None,
                         help="comma-separated conv decoder channels, e.g. 128,128,64,32,16")
-    # Options of later slices: accepted so that they fail with a clear message.
-    parser.add_argument("--mesh", default=None, metavar="DATA,MODEL", help="only 1,1 is ported")
+    parser.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                        help="device mesh layout: DATA-way batch sharding x MODEL-way output-projection "
+                        "sharding, one rank a card (with --device cpu, CPU ranks); e.g. 2,1 or 1,2")
     return parser
 
 
@@ -736,15 +741,34 @@ def _configs(args):
     return mcfg, tcfg
 
 
-def _refuse_later_training(args) -> bool:
-    if args.mesh is not None and args.mesh.replace(" ", "") != "1,1":
-        print(
-            f"--mesh {args.mesh}: training on a device mesh is not ported to the "
-            "PyTorch/CUDA package yet; it comes with a later slice (ROADMAP queue "
-            "1, item 15). Only --mesh 1,1 (one card) runs."
-        )
-        return True
-    return False
+def _mesh_shape(value: str | None) -> tuple[int, int] | None:
+    """``--mesh DATA,MODEL`` -> (DATA, MODEL); ValueError as the JAX CLI."""
+    if not value:
+        return None
+    parts = value.split(",")
+    if len(parts) != 2:
+        raise ValueError(f"--mesh expects DATA,MODEL (got {value!r})")
+    return int(parts[0]), int(parts[1])
+
+
+def _launch_mesh(argv: list[str], args, shape: tuple[int, int], output_dir: str) -> int:
+    """Start the DATA x MODEL ranks of this command line's training, one a
+    visible card or with ``--device cpu`` CPU ranks, and wait for them.
+    With fewer cards than ranks: exit 1 with make_mesh's message."""
+    from .parallel import mesh as pmesh
+
+    device = "cpu" if args.device == "cpu" else "cuda"
+    data, model = shape
+    try:
+        # On the CPU the ranks are the devices; on the card, the cards.
+        pmesh.mesh_shape(data, model, range(data * model) if device == "cpu" else pmesh.available_devices())
+    except ValueError as e:
+        print(f"Error: {e}")
+        return 1
+    # Every rank trains (the weights appear only when rank 0 is done) into
+    # the output directory the parent chose.
+    rank_argv = [*argv, "--train"] + ([] if args.output else ["--output", output_dir])
+    return pmesh.launch(["-m", "ai_font_renderer_tpu_torch", *rank_argv], data * model, device)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -764,27 +788,42 @@ def main(argv: list[str] | None = None) -> int:
             return 0  # --help: argparse printed it
         print("Available options: --train")
         return 1
-    if _refuse_later_training(args):
-        return 1
     from .device import resolve_device
+    from .parallel import mesh as pmesh
     from .render import render_strings
     from .utils.checkpoint import save_params
 
     try:
+        shape = _mesh_shape(args.mesh)
         device = resolve_device(args.device)
         mcfg, tcfg = _configs(args)
     except (RuntimeError, ValueError) as e:
         print(f"Error: {e}")
         return 1
     output_dir = args.output or default_output_dir()
-    os.makedirs(output_dir, exist_ok=True)
+    training = args.train or not os.path.exists(args.weights)
+    mesh = None
+    if training and shape is not None and shape != (1, 1):
+        if not pmesh.is_rank():
+            return _launch_mesh(argv, args, shape, output_dir)
+        pmesh.init_rank()
+        mesh = pmesh.make_mesh(*shape)
+    writes = mesh is None or mesh.is_main
+    if writes:
+        os.makedirs(output_dir, exist_ok=True)
 
-    if args.train or not os.path.exists(args.weights):
+    if training:
         if not args.train:
             print("No saved model found. Training a new model...")
-        result = run_training(
-            mcfg, tcfg, output_dir, args.font, args.checkpoint_dir, args.resume, device=device
-        )
+        try:
+            result = run_training(
+                mcfg, tcfg, output_dir, args.font, args.checkpoint_dir, args.resume, device=device, mesh=mesh
+            )
+        finally:
+            if mesh is not None:
+                pmesh.finish_rank()
+        if not writes:
+            return 0
         params = result.params
         save_params(params, args.weights, mcfg)
     else:

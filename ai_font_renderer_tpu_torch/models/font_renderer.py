@@ -27,12 +27,17 @@ not. With ``fused_attention`` or ``fused_attention_v2`` the attention's
 mask comes from the kernels' Philox under a seed drawn from ``generator``
 in its place in that order. The conv weights are stored HWIO, as in the
 JAX package, and turned to torch's OIHW inside :func:`conv_decode`.
+
+A rank of a data-parallel mesh passes a :class:`BatchRows` as the
+generator: it draws the whole batch's masks and keeps its own rows, so a
+sharded step drops what the one-device step drops.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from collections.abc import Mapping
+import functools
+from collections.abc import Callable, Mapping
 
 import numpy as np
 import torch
@@ -258,6 +263,34 @@ def infer_model_config(params: Mapping, base: ModelConfig = ModelConfig()) -> Mo
     return dataclasses.replace(base, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """The rows [start, stop) of a batch of ``total`` rows that one rank of
+    a data-parallel mesh computes, and the generator every rank shares.
+    Passed as the ``generator`` of :func:`features`, it draws each dropout
+    mask for the whole batch and keeps these rows, so the ranks together
+    drop what one device drops. With ``gather`` (a function that assembles
+    the whole batch from each rank's rows, parallel/mesh.py), features()
+    takes the whole batch's codes, computes only these rows and returns
+    the whole batch's features."""
+
+    generator: torch.Generator
+    start: int
+    stop: int
+    total: int
+    gather: Callable | None = None
+
+
+def _draw(fn, shape, generator, device, **kw) -> torch.Tensor:
+    """``fn(shape, generator=...)`` on ``device``; for :class:`BatchRows`,
+    drawn for the whole batch and cut to its rows."""
+    if not isinstance(generator, BatchRows):
+        return fn(tuple(shape), generator=generator, device=device, **kw)
+    rows = generator
+    full = fn((rows.total, *shape[1:]), generator=rows.generator, device=device, **kw)
+    return full[rows.start : rows.start + shape[0]]
+
+
 def _dropout(x: torch.Tensor, rate: float, generator, train: bool, bits: bool = False) -> torch.Tensor:
     """Inverted dropout with keep probability 1 - rate, masks drawn from
     ``generator``. ``bits``: the mask is a uint8 draw kept where it is below
@@ -268,10 +301,10 @@ def _dropout(x: torch.Tensor, rate: float, generator, train: bool, bits: bool = 
         return x
     keep = 1.0 - rate
     if bits:
-        draw = torch.randint(0, 256, x.shape, generator=generator, device=x.device, dtype=torch.uint8)
+        draw = _draw(functools.partial(torch.randint, 0, 256), x.shape, generator, x.device, dtype=torch.uint8)
         mask = draw < int(keep * 256)
     else:
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = _draw(torch.rand, x.shape, generator, x.device) < keep
     # x / keep in x's dtype, as jnp rounds the Python scalar to it (0.8 is
     # 0.80078125 in bf16); a 0-dim CPU tensor enters a CUDA op as a scalar.
     scale = torch.tensor(keep, dtype=x.dtype)
@@ -317,6 +350,9 @@ def features(
     seed, or the plain attention's mask, then fc1's."""
     if train and generator is None:
         raise ValueError("train=True needs a torch.Generator for the dropout masks")
+    rows = generator if isinstance(generator, BatchRows) else None
+    if rows is not None and rows.gather is not None:
+        codes = codes[rows.start : rows.stop]
     S = min(codes.shape[1], cfg.max_length)
     codes = codes[:, :S].long()
     dt = torch.bfloat16 if cfg.bf16_frontend else torch.float32
@@ -331,7 +367,13 @@ def features(
         rate, seed = 0.0, None
         if train:
             rate = cfg.dropout_rate
-            seed = torch.randint(0, 2**31, (1,), generator=generator, device=x.device, dtype=torch.int32)
+            g = generator if rows is None else rows.generator
+            seed = torch.randint(0, 2**31, (1,), generator=g, device=x.device, dtype=torch.int32)
+            if rows is not None and rows.start:
+                # The kernels key a sample's mask on its index in the call,
+                # so a rank's rows take a seed of their own: the ranks' masks
+                # are independent draws, not the one-device masks.
+                seed = ((seed.long() + rows.start * 0x9E3779B1) & 0x7FFFFFFF).to(torch.int32)
         entry = fused_attention2 if cfg.fused_attention_v2 else fused_attention
         attn = entry(x, {k: params[k] for k in ATTN_KEYS}, cfg.num_heads, rate, seed)
     else:
@@ -349,7 +391,16 @@ def features(
         ).to(dt)
 
     x = torch.relu(x @ params["fc1_w"].to(dt) + params["fc1_b"].to(dt))
-    return _dropout(x, cfg.fc_dropout_rate, generator, train, cfg.bits_dropout)
+    x = _dropout(x, cfg.fc_dropout_rate, generator, train, cfg.bits_dropout)
+    return x if rows is None or rows.gather is None else rows.gather(x)
+
+
+def frontend_keys(cfg: ModelConfig = ModelConfig()) -> list[str]:
+    """The parameters :func:`features` reads (init_frontend's keys)."""
+    keys = ["embedding", "pos", *ATTN_KEYS, "ln_scale", "ln_bias", "fc1_w", "fc1_b"]
+    for i in range(1, cfg.num_blocks):
+        keys += [f"{k}_b{i}" for k in (*ATTN_KEYS, "ln_scale", "ln_bias")]
+    return keys
 
 
 def frontend(
@@ -465,6 +516,13 @@ def apply(
     flat = frontend(params, codes, cfg, train=train, generator=generator)
     if cfg.decoder != "linear":
         return _clamp(conv_decode(params, flat, cfg), cfg, train)
+    return project(params, flat, cfg, train).reshape(B, cfg.sheet_height, cfg.sheet_width)
+
+
+def project(params: Mapping[str, torch.Tensor], flat: torch.Tensor, cfg: ModelConfig, train: bool = False) -> torch.Tensor:
+    """The linear decoder: flat [B, 6400] -> clamped [B, N], N the width of
+    ``params``' out_w: the whole sheet, or a column shard of it on a
+    model-parallel mesh (the clamp acts on each pixel alone)."""
     if cfg.use_pallas_output:
         if cfg.leaky_clamp > 0.0 or cfg.bf16_cotangent:
             raise ValueError(
@@ -472,8 +530,7 @@ def apply(
                 "its own VJP; it cannot combine with leaky_clamp or "
                 "bf16_cotangent"
             )
-        sheet = fused_output(flat, params["out_w"], params["out_b"])
-        return sheet.reshape(B, cfg.sheet_height, cfg.sheet_width)
+        return fused_output(flat, params["out_w"], params["out_b"])
     if cfg.bf16_cotangent:
         if not cfg.bf16_matmul:
             raise ValueError(
@@ -488,7 +545,7 @@ def apply(
             # bf16 operands, f32 sums: a bf16 x bf16 product is exact in f32.
             flat, w = flat.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
         sheet = flat @ w + params["out_b"]
-    return _clamp(sheet.reshape(B, cfg.sheet_height, cfg.sheet_width), cfg, train)
+    return _clamp(sheet, cfg, train)
 
 
 def _clamp(x: torch.Tensor, cfg: ModelConfig, train: bool) -> torch.Tensor:

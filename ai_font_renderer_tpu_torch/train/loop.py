@@ -11,6 +11,14 @@ and logs.
 Each epoch's dropout generator is seeded from (``tcfg.seed``, epoch), so a
 resumed run draws the same masks as an uninterrupted one without storing
 any generator state; the shuffles replay from ``default_rng(seed + 1)``.
+
+On a mesh (``mesh``, parallel/mesh.py) every rank runs this loop: the
+corpus is replicated, each rank takes its columns of the batch indices and
+its shard of the state, and the step averages over the data axis and splits
+the projection over the model axis (train/step.py). Every rank draws the
+same shuffles and dropout generators and reads the same losses, so they
+take the same decisions; rank (0, 0) alone logs and writes the manifests,
+``metrics.jsonl``, the eval renders and the checkpoints.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from ..config import ModelConfig, TrainConfig
 from ..fontgen.dataset import DeviceDataset, split_permutation, split_sizes
+from ..parallel.sharding import gather_params, shard_batch_idx, shard_state
 from ..utils.checkpoint import CheckpointManager
 from ..utils.metrics import MetricsLogger, Stopwatch
 from . import step as train_step_mod
@@ -65,6 +74,35 @@ def _detached_copy(params: dict) -> dict:
     return {k: v.detach().clone() for k, v in params.items()}
 
 
+def _silent(*args, **kwargs) -> None:
+    pass
+
+
+def _all_agree(mesh, flag: bool, device) -> bool:
+    """``flag``, or on a mesh whether it holds on any rank, so that every
+    rank stops at the same epoch."""
+    return flag if mesh is None else mesh.any(flag, device)
+
+
+def _refuse_on_a_mesh(mcfg: ModelConfig, tcfg: TrainConfig) -> None:
+    """The JAX package's two refusals on a mesh of more than one device
+    (its train/loop.py), with its messages."""
+    if tcfg.fused_dw_adamw:
+        raise ValueError(
+            "fused_dw_adamw is single-device only; train on a mesh "
+            "with the standard step (TrainConfig(fused_dw_adamw=False))"
+        )
+    if mcfg.fused_attention or mcfg.fused_attention_v2:
+        raise ValueError(
+            "the fused attention kernels do not compose with this "
+            "GSPMD sharding path (pallas_call is opaque to it); use "
+            "the explicit shard_map DP step instead "
+            "(parallel.make_shard_map_train_step — kernels run "
+            "per-shard there, tested in test_parallel.py), or train "
+            "with fused_attention=False / fused_attention_v2=False"
+        )
+
+
 def train(
     dataset: DeviceDataset,
     mcfg: ModelConfig = ModelConfig(),
@@ -75,9 +113,11 @@ def train(
     resume: bool = False,
     log=print,
     state=None,
+    mesh=None,
 ) -> TrainResult:
     """Train the font renderer on ``dataset``'s device; returns the best
-    parameters and the run's statistics.
+    parameters and the run's statistics (on a mesh, the whole parameters on
+    every rank).
 
     ``state``: the starting state (e.g. carried from the JAX package by
     ``train_state_from_jax``); by default parameters are drawn by
@@ -86,10 +126,19 @@ def train(
     match ``tcfg.fused_dw_adamw``.
     """
     device = dataset.codes.device
+    writes = mesh is None or mesh.is_main
+    if not writes:
+        log = _silent
     n = dataset.num_samples
     train_size, val_size = split_sizes(n, tcfg.validation_split)
     # Clamp to the train split, not the dataset, so the epoch reshape fits.
     batch_size = max(1, min(tcfg.batch_size, train_size))
+    if mesh is not None:
+        # Every rank takes equal rows: round the batch down to a multiple
+        # of the data axis.
+        batch_size = max(mesh.data, (batch_size // mesh.data) * mesh.data)
+    if mesh is not None and mesh.size > 1:
+        _refuse_on_a_mesh(mcfg, tcfg)
     log(f"Dataset split: {train_size} training samples, {val_size} validation samples")
 
     perm = split_permutation(n, tcfg.seed)
@@ -99,7 +148,9 @@ def train(
     val_batch_idx, val_weights = (torch.from_numpy(a).to(device) for a in _val_batches(val_idx, batch_size))
     val_batch_idx = val_batch_idx.long()
 
-    if output_dir:
+    if mesh is not None:
+        val_batch_idx, val_weights = shard_batch_idx(mesh, val_batch_idx), shard_batch_idx(mesh, val_weights)
+    if output_dir and writes:
         write_config_manifest(output_dir, mcfg, tcfg, batch_size, n)
 
     if state is None:
@@ -111,6 +162,8 @@ def train(
         raise ValueError(
             f"a {type(state).__name__} does not match fused_dw_adamw={tcfg.fused_dw_adamw}"
         )
+    if mesh is not None:
+        state = shard_state(mesh, state)
     scheduler = ReduceLROnPlateau(
         lr=tcfg.learning_rate,
         factor=tcfg.scheduler_factor,
@@ -131,7 +184,7 @@ def train(
     ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
     start_epoch = 0
     if ckpt and resume and ckpt.latest_step() is not None:
-        step_num, state, best, host = ckpt.restore(None, template=state)
+        step_num, state, best, host = ckpt.restore(None, template=state, mesh=mesh)
         if host.get("has_best"):
             # The historical best snapshot, so a resumed run that never
             # improves still returns the true best.
@@ -145,7 +198,7 @@ def train(
         log(f"Resumed from checkpoint at epoch {step_num}")
 
     metrics = MetricsLogger(
-        f"{output_dir}/metrics.jsonl" if output_dir else None,
+        f"{output_dir}/metrics.jsonl" if output_dir and writes else None,
         resume=start_epoch > 0,
     )
     shuffle_rng = np.random.default_rng(tcfg.seed + 1)
@@ -165,9 +218,11 @@ def train(
             lr = cosine.lr_at(epoch)
         epoch_perm = shuffle_rng.permutation(train_size)[: steps_per_epoch * batch_size]
         batch_idx = torch.from_numpy(train_idx[epoch_perm].reshape(steps_per_epoch, batch_size)).to(device)
+        if mesh is not None:
+            batch_idx = shard_batch_idx(mesh, batch_idx)
         state, train_loss, val_loss = train_step_mod.train_eval_epoch(
             state, dataset, batch_idx, val_batch_idx, val_weights, lr,
-            epoch_generator(tcfg.seed, epoch, device), mcfg, tcfg,
+            epoch_generator(tcfg.seed, epoch, device), mcfg, tcfg, mesh,
         )
         val_loss = float(val_loss)
         train_loss = float(train_loss)
@@ -208,7 +263,9 @@ def train(
             if output_dir and eval_strings:
                 from ..render.render import render_strings
 
-                render_strings(state.params, eval_strings, f"{output_dir}/epoch_{epoch}", mcfg)
+                params = state.params if mesh is None else gather_params(mesh, state.params)
+                if writes:
+                    render_strings(params, eval_strings, f"{output_dir}/epoch_{epoch}", mcfg)
         elif is_best:
             log(f"Epoch {epoch}, New best validation loss: {val_loss:.6f}")
 
@@ -231,6 +288,7 @@ def train(
                     "early_counter": early.counter,
                     "epoch": epoch,
                 },
+                mesh=mesh,
             )
 
         if early.should_stop:
@@ -238,9 +296,8 @@ def train(
             stopped = True
             break
 
-        if (
-            tcfg.max_train_seconds is not None
-            and time.perf_counter() - train_t0 >= tcfg.max_train_seconds
+        if tcfg.max_train_seconds is not None and _all_agree(
+            mesh, time.perf_counter() - train_t0 >= tcfg.max_train_seconds, device
         ):
             log(
                 f"Time budget ({tcfg.max_train_seconds:.0f}s) reached at "
@@ -250,11 +307,13 @@ def train(
             break
 
     best_params = early.best_state if early.best_state is not None else _detached_copy(state.params)
+    if mesh is not None:
+        best_params = gather_params(mesh, best_params)
     if not stopped:
         log(f"Training completed, Best Val Loss: {early.best_loss:.6f}")
 
     final_epoch = epoch + 1 if not stopped else epoch
-    if output_dir:
+    if output_dir and writes:
         write_results_manifest(output_dir, final_epoch, early.best_loss, lr, stopped)
     return TrainResult(
         params=best_params,

@@ -18,8 +18,13 @@ JAX subcommand; the flags and their defaults are the JAX ones, plus:
   tiled or the general build from the shape). It changes the path, not the
   function; ``none`` (the default) is the JAX package's ``ModelConfig()``.
 
-``--mesh`` other than 1 exits 1: data-parallel training comes with a later
-slice. The random streams: numpy's ``default_rng(42)`` for the split, the
+``--mesh DATA`` trains data-parallel, as the JAX subcommand: the CLI starts
+DATA ranks (parallel/mesh.py), the parameters replicate and each batch
+splits over them; the supervised step's loss is the whole batch's (each
+rank computes the net's features on its rows, and the rows are gathered
+before the loss, so its normalisers are the one-device step's), the
+fine-tune's the mean of the ranks' equal shards. Rank 0 alone writes the
+run's files. The random streams: numpy's ``default_rng(42)`` for the split, the
 boundary boost and the epoch order, as in the JAX package; the placement
 init from a ``torch.Generator`` seeded 0 and dropout from one seeded 7 (the
 JAX package's PRNGKey(0) and PRNGKey(7); threefry's numbers are not
@@ -29,8 +34,10 @@ reproduced, their distributions are).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -124,7 +131,8 @@ def add_args(ap: argparse.ArgumentParser) -> None:
                     help="resume the fine-tune from <out>/ft_ckpt's latest step; the batch schedule is a "
                     "function of the step, so the resumed run replays the uninterrupted one")
     ap.add_argument("--mesh", type=int, default=None, metavar="DATA",
-                    help="data-parallel ways; only 1 (one device) is ported")
+                    help="data-parallel ways: DATA ranks, one a card (with --device cpu, CPU ranks); the "
+                    "placement params replicate and each batch splits over them")
     ap.add_argument("--out", default=None)
     ap.add_argument("--e2e-steps", type=int, default=3000)
     ap.add_argument("--no-e2e", action="store_true")
@@ -178,20 +186,51 @@ def trainable(tree):
     return tree_map(lambda v: v.detach().clone().requires_grad_(), tree)
 
 
-def make_supervised_step(pcfg: ModelConfig, opt, detach_structure: bool = False):
+def _dp_shardings(mesh):
+    """(replicated, batch-sharded) placements on a data-parallel mesh: a
+    rank keeps a replicated tensor whole and takes its rows of a batch."""
+
+    def replicated(t):
+        return t
+
+    def batch_sharded(t):
+        return t[mesh.data_rows(t.shape[0])]
+
+    return replicated, batch_sharded
+
+
+def make_supervised_step(pcfg: ModelConfig, opt, detach_structure: bool = False, mesh=None):
     """The supervised placement step: ``step(params, opt_state, codes,
     mids, vis, line_tgt, contrib_tgt, ce_w, generator) -> (params,
     opt_state, loss)``, params and state updated in place. line_tgt,
     contrib_tgt and ce_w are None where the head or flags do not use them;
-    dropout draws from ``generator``."""
-    from ..models import placement
+    dropout draws from ``generator``.
+
+    With ``mesh`` (parallel.Mesh, data-parallel) every rank passes the
+    whole batch and the shared generator: it computes the net's features on
+    its rows (with its rows of the one-device dropout masks), the features
+    are gathered (font_renderer.BatchRows), and the heads and the loss run
+    on the whole batch, so the loss and its normalisers are the one-device
+    step's. The frontend's gradients are then summed over the ranks; the
+    heads' are whole on every rank."""
+    from ..models import font_renderer, placement
+
+    front = set(font_renderer.frontend_keys(pcfg))
 
     def step(params, opt_state, c, m, v, lt, ct, cw, generator):
+        if mesh is not None and mesh.data > 1:
+            rows = mesh.data_rows(c.shape[0])
+            gather = functools.partial(mesh.gather_rows, start=rows.start, total=c.shape[0])
+            generator = font_renderer.BatchRows(generator, rows.start, rows.stop, c.shape[0], gather)
         loss = placement.loss_fn(
             params, c, m, v, pcfg, generator=generator, train=True, line_tgt=lt, contrib_tgt=ct,
             detach_structure=detach_structure, ce_w=cw,
         )
         grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
+        if mesh is not None and mesh.data > 1:
+            shared = [k in front for k in params]
+            summed = iter(mesh.data_sum_all([g for g, f in zip(grads, shared) if f]))
+            grads = [next(summed) if f else g for g, f in zip(grads, shared)]
         opt.update_(params, grads, opt_state)
         return params, opt_state, loss.detach()
 
@@ -218,13 +257,21 @@ def make_pixel_loss(pcfg: ModelConfig, scfg, lay, bank=None):
     return pixel_loss
 
 
-def make_finetune_step(pixel_loss, ft_opt):
+def make_finetune_step(pixel_loss, ft_opt, mesh=None):
     """The pixel/joint fine-tune step: ``step(tunable, state, codes, ids,
-    valid, gt) -> (tunable, state, loss)``, updated in place."""
+    valid, gt) -> (tunable, state, loss)``, updated in place. With ``mesh``
+    (data-parallel) the tunable tree replicates, each rank takes its rows
+    of the whole batch it is passed, and the loss (a mean over equal
+    shards) and the gradients are averaged over the ranks."""
+    shard = None if mesh is None or mesh.data == 1 else _dp_shardings(mesh)[1]
 
     def step(t, st, c, ids, valid, gt):
+        if shard is not None:
+            c, ids, valid, gt = (shard(a) for a in (c, ids, valid, gt))
         loss = pixel_loss(t, c, ids, valid, gt)
         grads = torch.autograd.grad(loss, tree_leaves(t), allow_unused=True)
+        if shard is not None:
+            loss, *grads = mesh.data_sum_all([loss.detach(), *grads], mean=True)
         ft_opt.update_(t, grads, st)
         return t, st, loss.detach()
 
@@ -256,33 +303,65 @@ def _ascii_advances(table: AdvanceTable, charset: str) -> np.ndarray:
     return adv
 
 
-def run(args, ap: argparse.ArgumentParser) -> int:
-    """Execute the full train-placement pipeline for parsed ``args``."""
+def run(args, ap: argparse.ArgumentParser, argv: list[str] | None = None) -> int:
+    """Execute the full train-placement pipeline for parsed ``args``. With
+    ``--mesh DATA`` above 1, start DATA ranks that run ``argv`` (the
+    subcommand's arguments) and wait for them, unless this process is one."""
     from ..device import resolve_device
+    from ..parallel import mesh as pmesh
 
-    if args.mesh is not None and args.mesh > 1:
-        print(
-            f"--mesh {args.mesh}: data-parallel placement training is not ported to the PyTorch/CUDA "
-            "package yet; it comes with a later slice (ROADMAP queue 1, item 15). Only --mesh 1 (one "
-            "device) runs."
-        )
-        return 1
     if args.structured and args.line_head < 2:
         ap.error("--structured requires --line-head L (L >= 2)")
     if args.break_ce_boost > 0 and args.line_head < 2:
         ap.error("--break-ce-boost weights a line CE; needs --line-head")
+    mesh = None
+    if args.mesh and args.mesh > 1:
+        # The batch guards trip before any data work, as in the JAX package.
+        if args.batch % args.mesh:
+            ap.error(f"--batch {args.batch} not divisible by --mesh {args.mesh}")
+        if args.finetune_steps > 0 and FT_BATCH % args.mesh:
+            ap.error(f"--mesh {args.mesh} must divide the fine-tune batch ({FT_BATCH})")
+        if not pmesh.is_rank():
+            return _launch_ranks(args, argv)
+        pmesh.init_rank()
+        mesh = pmesh.make_mesh(data=args.mesh, model=1)
+        print(f"mesh: {args.mesh}-way data parallel over {mesh.size} devices", flush=True)
     try:
         dev = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         print(f"Error: {e}")
         return 1
     out_dir = args.out or f"extended_runs/placement_{args.font}"
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "metrics.jsonl"), "a", buffering=1) as metrics:
-        return _run(args, ap, dev, out_dir, metrics)
+    writes = mesh is None or mesh.is_main
+    try:
+        if writes:
+            os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "metrics.jsonl") if writes else os.devnull, "a", buffering=1) as metrics:
+            return _run(args, ap, dev, out_dir, metrics, mesh)
+    finally:
+        if mesh is not None:
+            pmesh.finish_rank()
 
 
-def _run(args, ap, dev: torch.device, out_dir: str, metrics) -> int:
+def _launch_ranks(args, argv) -> int:
+    """Start ``args.mesh`` ranks of ``train-placement argv``: one a visible
+    card (NCCL), or with ``--device cpu`` CPU ranks (gloo). With fewer
+    cards, exit 1 with make_mesh's message."""
+    from ..parallel import mesh as pmesh
+
+    if argv is None:
+        raise ValueError("--mesh above 1 starts ranks of the command line: pass its argv")
+    device = "cpu" if args.device == "cpu" else "cuda"
+    try:
+        # On the CPU the ranks are the devices; on the card, the cards.
+        pmesh.mesh_shape(args.mesh, 1, range(args.mesh) if device == "cpu" else pmesh.available_devices())
+    except ValueError as e:
+        print(f"Error: {e}")
+        return 1
+    return pmesh.launch(["-m", "ai_font_renderer_tpu_torch", "train-placement", *argv], args.mesh, device)
+
+
+def _run(args, ap, dev: torch.device, out_dir: str, metrics, mesh=None) -> int:
     from ..cli import TEST_STRINGS
     from ..fontgen.textgen import generate_corpus
     from ..models import placement
@@ -377,7 +456,8 @@ def _run(args, ap, dev: torch.device, out_dir: str, metrics) -> int:
         lr = args.lr
     opt = Adam(lr, weight_decay=1e-4)
     opt_state = opt.init(params)
-    step = make_supervised_step(pcfg, opt, args.detach_structure)
+    step = make_supervised_step(pcfg, opt, args.detach_structure, mesh)
+    writes = mesh is None or mesh.is_main
 
     @torch.no_grad()
     def evaluate(params, c, m, v):
@@ -423,7 +503,10 @@ def _run(args, ap, dev: torch.device, out_dir: str, metrics) -> int:
         for v in torch.stack(losses).tolist() if losses else []:
             loss_sum += v
         stage_s["supervised_train"] += time.time() - t0
-        vi = torch.from_numpy(va[:4096]).to(dev)
+        # Every rank evaluates the whole split alike (the JAX package shards
+        # it, and rounds it to a multiple of the mesh).
+        n_eval = 4096 if mesh is None else 4096 // args.mesh * args.mesh
+        vi = torch.from_numpy(va[:n_eval]).to(dev)
         rmse, worst, acc, lacc = evaluate(params, codes[vi], mids[vi], vis[vi])
         rec = {
             "epoch": epoch,
@@ -439,12 +522,13 @@ def _run(args, ap, dev: torch.device, out_dir: str, metrics) -> int:
             rec["loss_logvar"] = [round(float(v), 4) for v in params["loss_logvar"].detach().cpu().numpy()]
         print(json.dumps(rec), flush=True)
         metrics.write(json.dumps(rec) + "\n")
-    save_params(params, os.path.join(out_dir, "placement.npz"), mcfg=pcfg)
+    if writes:
+        save_params(params, os.path.join(out_dir, "placement.npz"), mcfg=pcfg)
 
     ft_steps = 0
     if not args.no_e2e:
         ft_steps = _end_to_end(args, params, pcfg, spec, charset, font_path, strings, tr, dev, out_dir, metrics,
-                               TEST_STRINGS, stage_s)
+                               TEST_STRINGS, stage_s, mesh)
     # Seconds of each stage, for a reader of the run's output; the training
     # loops end in a read of their losses, so their seconds are the device's too.
     print(json.dumps({"stage_seconds": stage_s, "supervised_steps": args.epochs * steps_per_epoch,
@@ -453,11 +537,14 @@ def _run(args, ap, dev: torch.device, out_dir: str, metrics) -> int:
 
 
 def _end_to_end(args, params, pcfg, spec, charset, font_path, strings, tr, dev, out_dir, metrics,
-                test_strings, stage_s) -> int:
+                test_strings, stage_s, mesh=None) -> int:
     """The SIREN bank, the pixel (or joint) fine-tune and the end-to-end
     evaluation rows: the neural render against the bitmap ground truth,
     beside the engine-layout render with the same bank (the oracle) ->
-    the fine-tune steps this run took."""
+    the fine-tune steps this run took. On a mesh every rank trains the same
+    bank from the same seed, the fine-tune is data-parallel, and rank 0
+    alone writes."""
+    writes = mesh is None or mesh.is_main
     from ..fontgen.dataset import bake_font_atlas, synthesize_ground_truth, unit_ground_truth
     from ..fontgen.ttf import TrueTypeFont
     from ..models import siren
@@ -478,7 +565,8 @@ def _end_to_end(args, params, pcfg, spec, charset, font_path, strings, tr, dev, 
         scfg = siren.SirenConfig(n_chars=len(charset), cell=64)
         sp, losses, _ = train_siren(font_path, scfg, charset=charset, steps=args.e2e_steps, lr=3e-4, device=dev)
     stage_s["siren"] = time.time() - t0
-    save_siren(sp, scfg, charset, os.path.join(out_dir, "siren.npz"), font=font_path)
+    if writes:
+        save_siren(sp, scfg, charset, os.path.join(out_dir, "siren.npz"), font=font_path)
     atlas = bake_font_atlas(font_path, proportional=args.font == "montserrat")
 
     sp_eval = sp  # the tuned bank under --finetune-joint
@@ -512,7 +600,7 @@ def _end_to_end(args, params, pcfg, spec, charset, font_path, strings, tr, dev, 
             tunable = params
             pixel_loss = make_pixel_loss(pcfg, scfg, lay, bank=sp)
         ft_state = ft_opt.init(tunable)
-        ft_step = make_finetune_step(pixel_loss, ft_opt)
+        ft_step = make_finetune_step(pixel_loss, ft_opt, mesh)
 
         first_px = last = None
         start_step = 0
@@ -545,6 +633,7 @@ def _end_to_end(args, params, pcfg, spec, charset, font_path, strings, tr, dev, 
                 metrics.write(json.dumps({"finetune_step": s + 1, "pixel_mse": float(last)}) + "\n")
             if (
                 ft_mgr is not None
+                and writes
                 and args.ft_checkpoint_every > 0
                 and (s + 1) % args.ft_checkpoint_every == 0
                 and (s + 1) < args.finetune_steps
@@ -561,9 +650,11 @@ def _end_to_end(args, params, pcfg, spec, charset, font_path, strings, tr, dev, 
         rec = {"finetune_pixel_mse_first": first_px, "finetune_pixel_mse_last": last_px}
         print(json.dumps(rec), flush=True)
         metrics.write(json.dumps(rec) + "\n")
-        save_params(params, os.path.join(out_dir, "placement_finetuned.npz"), mcfg=pcfg)
+        if writes:
+            save_params(params, os.path.join(out_dir, "placement_finetuned.npz"), mcfg=pcfg)
         if sp_tuned is not None:
-            save_siren(sp_tuned, scfg, charset, os.path.join(out_dir, "siren_finetuned.npz"), font=font_path)
+            if writes:
+                save_siren(sp_tuned, scfg, charset, os.path.join(out_dir, "siren_finetuned.npz"), font=font_path)
             # The e2e row measures what joint training bought: the tuned
             # bank renders the learned sheets; the oracle row keeps the
             # ORIGINAL bank, which the engine layout was trained against.
@@ -593,4 +684,5 @@ def _end_to_end(args, params, pcfg, spec, charset, font_path, strings, tr, dev, 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m ai_font_renderer_tpu_torch train-placement")
     add_args(ap)
-    return run(ap.parse_args(argv), ap)
+    argv = sys.argv[1:] if argv is None else argv
+    return run(ap.parse_args(argv), ap, argv)

@@ -20,7 +20,7 @@ the 123M-parameter projection needs no full-size temporaries:
 
 Steps:
 
-* standard (``_standard_step``): autograd through ``font_renderer.apply``;
+* standard (``_standard_grads``): autograd through ``font_renderer.apply``;
   with ``use_pallas_output`` the projection is the K1/K2/K3 autograd
   function (ops/fused_output.py) and dW (491.5 MB) is materialised, as on
   the JAX path.
@@ -177,16 +177,38 @@ def loss_fn(params, codes, targets, mcfg, generator):
     return mse_loss(pred, targets)
 
 
-def _standard_step(state: TrainState, codes, targets, lr, generator, mcfg, tcfg):
-    keys = list(state.params)
-    loss = loss_fn(state.params, codes, targets, mcfg, generator)
-    grads = torch.autograd.grad(loss, [state.params[k] for k in keys])
+def _column_parallel(params, mesh) -> bool:
+    """Whether out_w is split by columns over the mesh's model axis."""
+    return mesh is not None and mesh.model > 1 and "out_w" in params
+
+
+def _standard_grads(state: TrainState, codes, targets, generator, mcfg, tcfg, mesh=None):
+    """(loss, {key: gradient}) of the MSE through autograd. On a mesh whose
+    model axis splits out_w, this rank's column shard of the sheet: flat
+    enters the projection through ``mesh.model_input`` (its cotangent, the
+    partial dflat of each shard, summed over the model axis) and the loss
+    sums every shard's squares (``mesh.model_sum``)."""
+    params = state.params
+    keys = list(params)
+    if not _column_parallel(params, mesh):
+        loss = loss_fn(params, codes, targets, mcfg, generator)
+    else:
+        flat = font_renderer.frontend(params, codes, mcfg, train=True, generator=generator)
+        out = font_renderer.project(params, mesh.model_input(flat), mcfg, train=True)
+        d = out - mesh.columns(targets.reshape(targets.shape[0], -1)).float()
+        loss = mesh.model_sum((d * d).sum()) / (d.numel() * mesh.model)
+    grads = torch.autograd.grad(loss, [params[k] for k in keys])
+    return loss.detach(), dict(zip(keys, grads))
+
+
+def _update(state, grads: dict, lr, tcfg: TrainConfig) -> None:
+    """AdamW on every parameter of ``grads``, in place; counts the step."""
+    keys = list(grads)
     state.count += 1
     adamw_(
-        [state.params[k] for k in keys], grads, [state.mu[k] for k in keys],
+        [state.params[k] for k in keys], [grads[k] for k in keys], [state.mu[k] for k in keys],
         [state.nu[k] for k in keys], lr, tcfg, state.count,
     )
-    return state, loss.detach()
 
 
 def _save_products(ctx, op, *args, **kwargs):
@@ -211,10 +233,12 @@ def _frontend(rest: dict, codes, mcfg, generator, remat: str = "none") -> torch.
     vals = [rest[k] for k in keys]
     if remat == "none":
         return front(*vals)
-    start = generator.get_state()
+    # A mesh rank's BatchRows draws from the generator it wraps.
+    source = generator.generator if isinstance(generator, font_renderer.BatchRows) else generator
+    start = source.get_state()
 
     def replay(*vals):
-        generator.set_state(start)
+        source.set_state(start)
         return front(*vals)
 
     kw = {}
@@ -223,12 +247,13 @@ def _frontend(rest: dict, codes, mcfg, generator, remat: str = "none") -> torch.
     return ckpt.checkpoint(replay, *vals, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
-def _projection(flat, params, targets, mcfg):
+def _projection(flat, params, targets, mcfg, mesh=None):
     """The written-out projection + clamp + MSE. Returns (loss, out, g, gm,
     flat_dt): g = dL/dout unmasked, gm = g where 0 < out < 1, and flat
     rounded to bf16 under bf16_matmul. With ``use_pallas_output`` (which
     implies bf16) the forward product is K1, and flat_dt is K1's own bf16
-    operand (a [B, K] view of its padded x16)."""
+    operand (a [B, K] view of its padded x16). With a column-parallel
+    ``mesh``, out is this rank's shard and the loss sums every shard's."""
     w, b = params["out_w"], params["out_b"]
     if mcfg.use_pallas_output:
         # w itself (this runs under no_grad): its bf16 shadow is keyed on it.
@@ -239,9 +264,15 @@ def _projection(flat, params, targets, mcfg):
         flat_dt = flat.to(dt)
         out = (flat_dt.float() @ w.detach().to(dt).float() + b.detach()).clamp(0.0, 1.0)
     tflat = targets.reshape(targets.shape[0], -1).float()
-    d = out - tflat
-    loss = (d * d).mean()
-    g = (2.0 / d.numel()) * d
+    if mesh is None:
+        d = out - tflat
+        n = d.numel()
+        loss = (d * d).mean()
+    else:
+        d = out - mesh.columns(tflat)
+        n = d.numel() * mesh.model
+        loss = mesh.model_sum((d * d).sum()) / n
+    g = (2.0 / n) * d
     gm = torch.where(clamp_mask(out), g, 0.0)
     return loss, out, g, gm, flat_dt
 
@@ -258,12 +289,13 @@ def _dflat(out, g, gm, w, mcfg):
     return gm_dt.float() @ w.to(gm_dt.dtype).float().T, gm_dt
 
 
-def _handrolled_step(state: TrainState, codes, targets, lr, generator, mcfg, tcfg):
-    """Standard-state step with the projection's backward written out: the
-    masked cotangent is rounded once and feeds both backward products; the
-    frontend differentiates through autograd (recomputed under
+def _handrolled_grads(state: TrainState, codes, targets, generator, mcfg, tcfg, mesh=None):
+    """(loss, {key: gradient}) with the projection's backward written out:
+    the masked cotangent is rounded once and feeds both backward products;
+    the frontend differentiates through autograd (recomputed under
     ``remat_frontend``). The only numerical change from the standard step
-    is that rounding of the projection's cotangent."""
+    is that rounding of the projection's cotangent. On a column-parallel
+    ``mesh`` each rank's dflat is summed over the model axis."""
     if mcfg.decoder != "linear" or mcfg.leaky_clamp > 0.0 or mcfg.use_pallas_output:
         raise ValueError(
             "handrolled_bwd hand-codes the linear projection + hard-clamp "
@@ -273,19 +305,16 @@ def _handrolled_step(state: TrainState, codes, targets, lr, generator, mcfg, tcf
     params = state.params
     rest = {k: v for k, v in params.items() if k not in ("out_w", "out_b")}
     flat = _frontend(rest, codes, mcfg, generator, tcfg.remat_frontend)
+    shard = mesh if _column_parallel(params, mesh) else None
     with torch.no_grad():
         w = params["out_w"]
-        loss, out, g, gm, flat_dt = _projection(flat.detach(), params, targets, mcfg)
+        loss, out, g, gm, flat_dt = _projection(flat.detach(), params, targets, mcfg, shard)
         dflat, gm_dt = _dflat(out, g, gm, w, mcfg)
+        if shard is not None:
+            dflat = shard.model_sum(dflat)
         grads = {"out_b": gm.sum(0), "out_w": flat_dt.float().T @ gm_dt.float()}
     grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
-    keys = list(params)
-    state.count += 1
-    adamw_(
-        [params[k] for k in keys], [grads[k] for k in keys], [state.mu[k] for k in keys],
-        [state.nu[k] for k in keys], lr, tcfg, state.count,
-    )
-    return state, loss
+    return loss, {k: grads[k] for k in params}
 
 
 def _fused_step(state: FusedTrainState, codes, targets, lr, generator, mcfg, tcfg):
@@ -318,44 +347,72 @@ def _fused_step(state: FusedTrainState, codes, targets, lr, generator, mcfg, tcf
     return state, loss
 
 
-def train_step(state, codes, targets, lr: float, generator, mcfg: ModelConfig, tcfg: TrainConfig):
+def train_step(state, codes, targets, lr: float, generator, mcfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """One optimizer step on a batch -> (state, loss); the step the configs
-    select: fused (a :class:`FusedTrainState`), hand-rolled, or standard."""
+    select: fused (a :class:`FusedTrainState`), hand-rolled, or standard.
+
+    ``mesh`` (parallel.Mesh): the step of one rank, the counterpart of the
+    JAX package's step under GSPMD shardings. codes and targets are this
+    rank's rows of the batch and the state its shard (parallel.shard_state);
+    ``generator`` is the one every rank shares, so the dropout masks are the
+    one-device step's. The loss and gradients are averaged over the data
+    axis, and with out_w split over the model axis the projection is
+    column-parallel. A mesh of one device takes the one-device step. The
+    fused step (K4) runs on one device only, as in the JAX package."""
+    if mesh is not None and mesh.data > 1:
+        start = mesh.data_index * codes.shape[0]
+        generator = font_renderer.BatchRows(generator, start, start + codes.shape[0], codes.shape[0] * mesh.data)
     if isinstance(state, FusedTrainState):
+        if mesh is not None and mesh.size > 1:
+            raise ValueError("fused_dw_adamw is single-device only; train on a mesh with the standard step")
         return _fused_step(state, codes, targets, lr, generator, mcfg, tcfg)
-    if tcfg.handrolled_bwd:
-        return _handrolled_step(state, codes, targets, lr, generator, mcfg, tcfg)
-    return _standard_step(state, codes, targets, lr, generator, mcfg, tcfg)
+    grads_fn = _handrolled_grads if tcfg.handrolled_bwd else _standard_grads
+    loss, grads = grads_fn(state, codes, targets, generator, mcfg, tcfg, mesh)
+    if mesh is not None:
+        loss, grads = mesh.data_mean(loss, grads)
+    _update(state, grads, lr, tcfg)
+    return state, loss
 
 
-def train_epoch(state, dataset, batch_idx: torch.Tensor, lr: float, generator, mcfg, tcfg):
+def train_epoch(state, dataset, batch_idx: torch.Tensor, lr: float, generator, mcfg, tcfg, mesh=None):
     """One epoch over ``batch_idx`` [steps, B] (sample indices on the
-    dataset's device) -> (state, mean train loss as a device scalar)."""
+    dataset's device; on a mesh, this rank's columns of them) -> (state,
+    mean train loss as a device scalar)."""
     losses = []
     for idx in batch_idx:
         codes, targets = dataset.gather_batch(idx)
-        state, loss = train_step(state, codes, targets, lr, generator, mcfg, tcfg)
+        state, loss = train_step(state, codes, targets, lr, generator, mcfg, tcfg, mesh)
         losses.append(loss)
     return state, torch.stack(losses).mean()
 
 
 @torch.no_grad()
-def eval_epoch(params, dataset, batch_idx: torch.Tensor, weights: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
+def eval_epoch(params, dataset, batch_idx: torch.Tensor, weights: torch.Tensor, mcfg: ModelConfig,
+               mesh=None) -> torch.Tensor:
     """Validation (no dropout) -> the sample-weighted mean MSE as a device
-    scalar; ``weights`` [steps, B] is 0 for the padding of the last batch."""
+    scalar; ``weights`` [steps, B] is 0 for the padding of the last batch.
+    On a mesh each rank holds its columns of ``batch_idx`` and ``weights``
+    and its shard of the parameters; the sums cover every rank's."""
     sums = torch.zeros((), device=batch_idx.device)
     counts = torch.zeros((), device=batch_idx.device)
     for idx, w in zip(batch_idx, weights):
         codes, targets = dataset.gather_batch(idx)
-        pred = font_renderer.apply(params, codes, mcfg)
-        per_sample = ((pred - targets) ** 2).mean(dim=(1, 2))
+        if _column_parallel(params, mesh):
+            out = font_renderer.project(params, font_renderer.frontend(params, codes, mcfg), mcfg)
+            d = out - mesh.columns(targets.reshape(targets.shape[0], -1))
+            per_sample = mesh.model_sum((d * d).sum(1)) / (d.shape[1] * mesh.model)
+        else:
+            pred = font_renderer.apply(params, codes, mcfg)
+            per_sample = ((pred - targets) ** 2).mean(dim=(1, 2))
         sums += (per_sample * w).sum()
         counts += w.sum()
+    if mesh is not None:
+        sums, counts = mesh.data_sum(sums), mesh.data_sum(counts)
     return sums / counts.clamp(min=1.0)
 
 
-def train_eval_epoch(state, dataset, batch_idx, val_batch_idx, val_weights, lr, generator, mcfg, tcfg):
+def train_eval_epoch(state, dataset, batch_idx, val_batch_idx, val_weights, lr, generator, mcfg, tcfg, mesh=None):
     """A training epoch then a validation pass -> (state, train loss, val
     loss), both device scalars."""
-    state, train_loss = train_epoch(state, dataset, batch_idx, lr, generator, mcfg, tcfg)
-    return state, train_loss, eval_epoch(state.params, dataset, val_batch_idx, val_weights, mcfg)
+    state, train_loss = train_epoch(state, dataset, batch_idx, lr, generator, mcfg, tcfg, mesh)
+    return state, train_loss, eval_epoch(state.params, dataset, val_batch_idx, val_weights, mcfg, mesh)

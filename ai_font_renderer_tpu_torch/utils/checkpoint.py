@@ -241,9 +241,18 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state, best_params: dict, host_state: dict) -> None:
+    def save(self, step: int, state, best_params: dict, host_state: dict, mesh=None) -> None:
         """Save the training state, the best-weights snapshot and the host
-        state for ``step``, then drop all but the newest ``keep`` steps."""
+        state for ``step``, then drop all but the newest ``keep`` steps.
+        On a mesh (parallel.Mesh) every rank calls it with its shards:
+        out_w's columns and their moments are gathered, and rank (0, 0)
+        writes the file a one-device run writes."""
+        if mesh is not None:
+            from ..parallel.sharding import gather_params, gather_state
+
+            state, best_params = gather_state(mesh, state), gather_params(mesh, best_params)
+            if not mesh.is_main:
+                return
         tree = {"state": _state_record(state), "best_params": _detached(best_params)}
         self.save_tree(step, tree, host_state)
 
@@ -271,14 +280,20 @@ class CheckpointManager:
         with open(os.path.join(self._step_dir(step), "host_state.json")) as f:
             return json.load(f)
 
-    def restore(self, step: int | None, template):
+    def restore(self, step: int | None, template, mesh=None):
         """-> (step, state, best_params, host_state); step None restores the
         latest. The state comes back as ``template``'s type (TrainState or
         FusedTrainState) with each tensor on the device and in the dtype of
-        ``template``'s; the best-weights snapshot follows its parameters."""
+        ``template``'s; the best-weights snapshot follows its parameters.
+        On a mesh each rank takes its own shard of the whole state, so a
+        run moves between one device and any mesh both ways."""
         step, tree, host = self.restore_tree(step)
         state = _state_from_record(tree["state"], template)
         best = {k: v.to(device=template.params[k].device) for k, v in tree["best_params"].items()}
+        if mesh is not None:
+            from ..parallel.sharding import shard_params, shard_state
+
+            state, best = shard_state(mesh, state), shard_params(mesh, best)
         return step, state, best, host
 
     def restore_tree(self, step: int | None = None, template=None):

@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --step-memory   # only the peak memory of one training step
     python3 chip_smoke.py --serve-repeats N   # only phase 4's requests, on N servers
+    python3 chip_smoke.py --mesh-only       # only the build and phase 11, the device mesh
 
 Phases, each of which raises on failure, each with its seconds:
 
@@ -157,12 +158,29 @@ Phases, each of which raises on failure, each with its seconds:
    general attention forward and backward at B 1024, S 100, E 64, H 8,
    rate 0.2, f32, against their plain versions, timed beside the library
    and the bound.
-11. One JSON line listing every kernel (K1-K9, the operand pass, the
+11. The device mesh (parallel/): (a) a step through the mesh code on a
+   (1, 1) mesh with the output kernels at dropout 0.2, its loss, parameters
+   and moments bit-equal to the plain step's, and the steps/s of both in
+   turns, within 3%; (b) two ranks of this script (`--mesh-rank`) share the
+   card over gloo (NCCL refuses two ranks on one device), full width,
+   batch 1024, 512 a rank: the (2, 1) and (1, 2) meshes with K1/K2/K3 on
+   each rank (at (1, 2) on a column shard, N = 9600), the explicit DP step
+   with `attn_v1`'s model (K1/K2/K3, K5/K6 in f32) and with `attn_v2_fast`'s
+   (K7/K8 in bf16); each at dropout 0 against the one-process step on the
+   same weights and batch (loss rtol 2e-5, out_b atol 2e-5, every leaf's
+   gradient within MESH_GRAD_REL_TOL of its largest), then at dropout 0.2,
+   where the loss must fall, and steps/s; (c) the (1, 2) run's checkpoint,
+   written by rank 0 in the one-device format, restored on one device with
+   the ranks' parameters bit for bit; (d) `--mesh 2,1` on one card exits 1
+   with make_mesh's message. `--mesh-only` runs the build and this phase
+   alone.
+12. One JSON line listing every kernel (K1-K9, the operand pass, the
    GEMMs of K2 and K3, the bf16 attention forward and backward on
    tensor cores, and the general attention forward and backward) with its
    launches on the
-   main paths (phases 3-10 and the K4/K9 A/B; counts are set to 0
-   just before each drive and read just after), its error and its times.
+   main paths (phases 3-11, both mesh ranks' included, and the K4/K9 A/B;
+   counts are set to 0 just before each drive and read just after), its
+   error and its times.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -3451,6 +3469,344 @@ def phase_placement(workdir: str, card: str) -> tuple[dict, list[dict], list[dic
     return counts, fwd_rows, bwd_rows
 
 
+# -- phase 11: the device mesh --------------------------------------------
+MESH_BATCH = 1024
+MESH_SEED = 11
+# Against the one-process step on the same weights and batch, dropout 0
+# (tests/test_parallel.py's bounds): the loss and out_b.
+MESH_LOSS_RTOL = 2e-5
+MESH_OUT_B_ATOL = 2e-5
+# Every other parameter, through its gradient (mu/(1-b1) after one step
+# from zero f32 moments), relative to the leaf's largest value (an
+# attention weight's: the largest of the eight, since bk's gradient is 0 in
+# exact arithmetic, rounding noise in both): the ranks sum the same
+# products in another order (per-rank rows, the all-reduce, K1/K2/K3 on
+# column shards). A bf16 frontend rounds its partial sums to bf16 where the
+# one process rounds the whole batch's.
+MESH_GRAD_REL_TOL = {"f32": 1e-3, "bf16": 5e-2}
+MESH_RATE_TOL = 0.03  # (a): the mesh code's steps/s within 3% of the plain step's
+# Steps at dropout 0.2 on one batch. The first update from fresh moments
+# moves every weight by the learning rate and throws the loss up; after it
+# the loss must fall.
+MESH_FALL_STEPS = 5
+MESH_TIME_STEPS = 6
+
+
+def _mesh_configs() -> dict:
+    """(b)'s runs: name -> (step, (data, model), mcfg, precision)."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig, replace
+
+    base = ModelConfig(use_pallas_output=True)
+    fast = ModelConfig(bf16_frontend=True, bits_dropout=True, fused_attention_v2=True)
+    return {
+        "output_2x1": ("sharded", (2, 1), base, "f32"),
+        "output_1x2": ("sharded", (1, 2), base, "f32"),
+        "attn_v1_dp": ("explicit", (2, 1), replace(base, fused_attention=True), "f32"),
+        "attn_v2_fast_dp": ("explicit", (2, 1), fast, "bf16"),
+    }
+
+
+def _mesh_params():
+    """Full-width weights from MESH_SEED, drawn on the CPU (the same in
+    every process), on the card."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig
+    from ai_font_renderer_tpu_torch.models import font_renderer
+
+    params = font_renderer.init(torch.Generator().manual_seed(MESH_SEED), ModelConfig(), "cpu")
+    return {k: v.cuda() for k, v in params.items()}
+
+
+def _mesh_batch(path: str):
+    with np.load(path) as z:
+        codes, targets = torch.from_numpy(z["codes"]).cuda(), torch.from_numpy(z["targets_u8"]).cuda()
+    return codes, targets.float() / 255.0
+
+
+def _digests(params: dict) -> dict:
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()[:16] for k, v in params.items()}
+
+
+def _grad_errors(mu: dict, ref_mu: dict, b1: float = 0.9) -> dict:
+    """Each leaf's gradient (mu / (1 - b1)) against the reference's, as a
+    share of the reference's largest value; the attention weights' as a
+    share of the largest of the eight."""
+    from ai_font_renderer_tpu_torch.ops.fused_attention import KEYS
+
+    step = float(np.float32(1) - np.float32(b1))
+    largest = {k: float(v.float().abs().max()) / step for k, v in ref_mu.items()}
+    attn = max(largest[k] for k in KEYS)
+    return {k: float((mu[k].float() - ref_mu[k].float()).abs().max()) / step
+            / max(attn if k in KEYS else largest[k], 1e-30) for k in ref_mu}
+
+
+def mesh_rank(job_path: str) -> int:
+    """One rank of phase 11 (b)/(c), started by phase_mesh: each run of
+    _mesh_configs through the mesh code at full width, batch MESH_BATCH
+    split over the ranks; rank 0 then holds each against the one-process
+    step and writes the report. Every rank writes its launches."""
+    import torch.distributed as dist
+
+    from ai_font_renderer_tpu_torch.config import TrainConfig, replace
+    from ai_font_renderer_tpu_torch.device import resolve_device
+    from ai_font_renderer_tpu_torch.parallel import mesh as pmesh
+    from ai_font_renderer_tpu_torch.parallel import (
+        gather_state, make_mesh, make_shard_map_train_step, shard_batch, shard_state,
+    )
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+    from ai_font_renderer_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rank = pmesh.init_rank()
+    resolve_device("cuda")
+    with open(job_path) as f:
+        job = json.load(f)
+    codes_all, targets_all = _mesh_batch(job["batch"])
+    params0 = _mesh_params()
+    tcfg = TrainConfig(adam_mu_bf16=False)
+    counts = {k: 0 for k in _kernel_fns()}
+    report = {}
+
+    for name, (kind, shape, mcfg, precision) in _mesh_configs().items():
+        mesh = make_mesh(*shape)
+        no_drop = replace(mcfg, dropout_rate=0.0, fc_dropout_rate=0.0)
+        if kind == "sharded":
+            codes, targets = shard_batch(mesh, codes_all, targets_all)
+
+            def run(state, m, seed):
+                return train_step(state, codes, targets, 1e-3, torch.Generator(device="cuda").manual_seed(seed),
+                                  m, tcfg, mesh)
+
+            def fresh():
+                return shard_state(mesh, state_from_params(params0, tcfg))
+        else:
+            steps = {}
+
+            def run(state, m, seed):
+                if m not in steps:
+                    steps[m] = make_shard_map_train_step(mesh, m, tcfg)
+                return steps[m](state, codes_all, targets_all, 1e-3, seed)
+
+            def fresh():
+                return state_from_params(params0, tcfg)
+
+        torch.cuda.synchronize()
+        dist.barrier()
+        _reset_counts()
+        state, loss = run(fresh(), no_drop, 7)
+        whole = gather_state(mesh, state) if kind == "sharded" else state
+        got = {"loss": float(loss), "out_b": whole.params["out_b"].detach().clone(),
+               "mu": {k: v.clone() for k, v in whole.mu.items()}}
+        del state, whole
+        state, falls = fresh(), []
+        for i in range(MESH_FALL_STEPS):
+            state, loss = run(state, mcfg, 100 + i)
+            falls.append(float(loss))
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for i in range(MESH_TIME_STEPS):
+            state, loss = run(state, mcfg, 200 + i)
+        torch.cuda.synchronize()
+        dist.barrier()
+        rate = MESH_TIME_STEPS / (time.perf_counter() - t0)
+        if name == "output_1x2":
+            # (c): the mesh writes the one-device checkpoint format.
+            CheckpointManager(job["checkpoint"]).save(1, state, state.params, {"epoch": 1}, mesh=mesh)
+            report["checkpoint_digests"] = _digests(gather_state(mesh, state).params)
+        torch.cuda.synchronize()
+        run_counts = _counts()
+        counts = {k: counts[k] + run_counts[k] for k in counts}
+        shard = state.params["out_w"].shape[1]
+        del state
+        dist.barrier()
+        if rank == 0:
+            # The one-process step on the whole batch, same weights.
+            ref, ref_loss = train_step(state_from_params(params0, tcfg), codes_all, targets_all, 1e-3,
+                                       torch.Generator(device="cuda").manual_seed(7), no_drop, tcfg)
+            errs = _grad_errors(got["mu"], ref.mu)
+            report[name] = {
+                "mesh": list(shape), "step": kind, "out_w_shard_columns": shard,
+                "loss": got["loss"], "ref_loss": float(ref_loss),
+                "loss_rel": abs(got["loss"] - float(ref_loss)) / float(ref_loss),
+                "out_b_max_abs": float((got["out_b"] - ref.params["out_b"].detach()).abs().max()),
+                "grad_rel": max(errs.values()), "grad_rel_leaf": max(errs, key=errs.get),
+                "grad_tol": MESH_GRAD_REL_TOL[precision], "dropout_losses": falls, "steps_per_s": rate,
+                "launches": {k: v for k, v in run_counts.items() if v},
+            }
+            del ref
+        del got
+        torch.cuda.empty_cache()
+    with open(os.path.join(job["out"], f"counts_{rank}.json"), "w") as f:
+        json.dump(counts, f)
+    if rank == 0:
+        with open(os.path.join(job["out"], "report.json"), "w") as f:
+            json.dump(report, f)
+    pmesh.finish_rank()
+    return 0
+
+
+def _plain_and_mesh_rates(params, codes, targets, mcfg, tcfg, mesh, runs: int = 24, steps: int = 20,
+                          top: int = 3) -> dict:
+    """Steps/s of the one-device step and the same step through the mesh
+    code on a (1, 1) mesh, in turns (P M M P ...) on one state (a (1, 1)
+    shard is the whole tensor): the mean of the ``top`` best of 2 x
+    ``runs`` runs each, with every run's rate. The step is host-bound and
+    its runs spread by 10-30% in the full script (a tenth of them come
+    within 3% of the best), so the best runs are compared; the collector,
+    which scans every object the earlier phases left, is paused."""
+    from ai_font_renderer_tpu_torch.parallel import shard_state
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+
+    plain = state_from_params(params, tcfg)
+    states = {"plain": (plain, None), "mesh": (shard_state(mesh, plain), mesh)}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rates = {"plain": [], "mesh": []}
+    order = ["plain", "mesh", "mesh", "plain"] * runs
+    gc.collect()
+    gc.disable()
+    try:
+        for i, name in enumerate(order[:2] + order):
+            state, m = states[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                train_step(state, codes, targets, 1e-3, gen, mcfg, tcfg, m)
+            torch.cuda.synchronize()
+            if i >= 2:
+                rates[name].append(steps / (time.perf_counter() - t0))
+    finally:
+        gc.enable()
+    best = {k: float(np.mean(sorted(v)[-top:])) for k, v in rates.items()}
+    return {**best, "runs": rates}
+
+
+def phase_mesh(workdir: str, card: str) -> dict:
+    """Phase 11: the device mesh -> the launches of its runs (both ranks'
+    and (a)'s)."""
+    from ai_font_renderer_tpu_torch.config import ModelConfig, TrainConfig
+    from ai_font_renderer_tpu_torch.parallel import launch, shard_state, single_device_mesh
+    from ai_font_renderer_tpu_torch.train.step import state_from_params, train_step
+    from ai_font_renderer_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rng = np.random.default_rng(MESH_SEED)
+    codes_np = rng.integers(32, 91, (MESH_BATCH, 100)).astype(np.int32)
+    targets_np = rng.integers(0, 256, (MESH_BATCH, 80, 240)).astype(np.uint8)
+    targets_np[targets_np < 160] = 0  # mostly paper, some ink
+    batch_path = os.path.join(workdir, "mesh_batch.npz")
+    np.savez(batch_path, codes=codes_np, targets_u8=targets_np)
+    codes, targets = _mesh_batch(batch_path)
+    params = _mesh_params()
+
+    # (a) A step through the mesh code on a (1, 1) mesh: bit for bit the
+    # plain step, at the plain step's speed.
+    mcfg, tcfg = ModelConfig(use_pallas_output=True), TrainConfig()
+    mesh = single_device_mesh()
+    torch.cuda.synchronize()
+    _reset_counts()
+    plain, plain_loss = train_step(state_from_params(params, tcfg), codes, targets, 1e-3,
+                                   torch.Generator(device="cuda").manual_seed(7), mcfg, tcfg)
+    on_mesh, mesh_loss = train_step(shard_state(mesh, state_from_params(params, tcfg)), codes, targets, 1e-3,
+                                    torch.Generator(device="cuda").manual_seed(7), mcfg, tcfg, mesh)
+    torch.cuda.synchronize()
+    counts = _counts()
+    unequal = [k for k in plain.params if not (torch.equal(plain.params[k], on_mesh.params[k])
+                                               and torch.equal(plain.mu[k], on_mesh.mu[k])
+                                               and torch.equal(plain.nu[k], on_mesh.nu[k]))]
+    print(f"[mesh] (a) --mesh 1,1 step through the mesh code, output kernels, dropout 0.2: loss "
+          f"{float(mesh_loss):.9g} vs the plain step's {float(plain_loss):.9g}; leaves not bit-equal {unequal}",
+          flush=True)
+    if not (torch.equal(plain_loss, mesh_loss) and not unequal):
+        raise AssertionError(f"mesh (1,1) step differs from the plain step: {unequal}")
+    del plain, on_mesh
+    rates = _plain_and_mesh_rates(params, codes, targets, mcfg, tcfg, mesh)
+    ratio = rates["mesh"] / rates["plain"]
+    print(f"[mesh] (a) steps/s at batch {MESH_BATCH}: plain {rates['plain']:.3f}, through the (1,1) mesh "
+          f"{rates['mesh']:.3f} ({ratio:.4f}x, tol {MESH_RATE_TOL}; the mean of each one's best 3 runs; every run "
+          f"{json.dumps({k: [round(r, 2) for r in v] for k, v in rates['runs'].items()})}) ({card})", flush=True)
+    if abs(ratio - 1.0) > MESH_RATE_TOL:
+        raise AssertionError(f"the (1,1) mesh step runs {ratio:.4f}x the plain step")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Two ranks on this card over gloo; (c) their (1,2) checkpoint.
+    out = os.path.join(workdir, "mesh_out")
+    os.makedirs(out, exist_ok=True)
+    job = {"batch": batch_path, "checkpoint": os.path.join(workdir, "mesh_ckpt"), "out": out}
+    with open(os.path.join(workdir, "mesh_job.json"), "w") as f:
+        json.dump(job, f)
+    t0 = time.perf_counter()
+    code = launch([os.path.abspath(__file__), "--mesh-rank", os.path.join(workdir, "mesh_job.json")], 2, "cuda",
+                  backend="gloo", timeout=300)
+    print(f"[mesh] (b) two ranks on {torch.cuda.get_device_name(0)} over gloo: exit {code} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if code != 0:
+        raise AssertionError(f"the mesh ranks exited {code}")
+    with open(os.path.join(out, "report.json")) as f:
+        report = json.load(f)
+    for r in range(2):
+        with open(os.path.join(out, f"counts_{r}.json")) as f:
+            counts = {k: counts[k] + v for k, v in json.load(f).items()}
+    failed = []
+    for name, row in report.items():
+        if name == "checkpoint_digests":
+            continue
+        print(f"[mesh] (b) {name}: {json.dumps(row)}", flush=True)
+        if not (row["loss_rel"] <= MESH_LOSS_RTOL and row["out_b_max_abs"] <= MESH_OUT_B_ATOL
+                and row["grad_rel"] <= row["grad_tol"] and row["dropout_losses"][-1] < row["dropout_losses"][1]):
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"mesh runs outside their bounds: {failed}")
+    print(f"[mesh] (b) steps/s at batch {MESH_BATCH} (two ranks sharing the card, gloo): "
+          f"{json.dumps({k: round(v['steps_per_s'], 3) for k, v in report.items() if k != 'checkpoint_digests'})} "
+          f"({card})", flush=True)
+    wanted = {"output_2x1": ("fused_output", "fused_output_dx", "fused_output_dw"),
+              "output_1x2": ("fused_output", "fused_output_dx", "fused_output_dw"),
+              "attn_v1_dp": ("fused_attention", "fused_attention_backward", "fused_output"),
+              "attn_v2_fast_dp": ("fused_attention2", "fused_attention2_backward", "attention_mma_fwd",
+                                  "attention_mma_bwd")}
+    for name, kernels in wanted.items():
+        missing = [k for k in kernels if not report[name]["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"mesh {name} never launched {missing} on rank 0")
+
+    # (c) The (1,2) checkpoint resumes on one device with equal parameters.
+    _, state, _, host = CheckpointManager(job["checkpoint"]).restore(None, state_from_params(_mesh_params(),
+                                                                                             TrainConfig()))
+    got = _digests(state.params)
+    print(f"[mesh] (c) the (1,2) checkpoint restored on one device: {len(got)} leaves, digests equal to the "
+          f"ranks' gathered parameters: {got == report['checkpoint_digests']}", flush=True)
+    if got != report["checkpoint_digests"]:
+        raise AssertionError("the (1,2) checkpoint does not restore the ranks' parameters")
+    del state
+
+    # (d) A mesh larger than the card count exits 1 with make_mesh's message.
+    rc, lines = _cli(["--train", "--mesh", "2,1", "--output", os.path.join(workdir, "mesh_refused")], "mesh (d)")
+    if rc != 1 or not any("mesh 2x1 needs 2 > 1 devices" in line for line in lines):
+        raise AssertionError(f"--mesh 2,1 on one card: exit {rc}, {lines}")
+    return counts
+
+
+def mesh_only() -> int:
+    """``--mesh-only``: the kernels' build, then phase 11 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
+        return 2
+    from ai_font_renderer_tpu_torch.device import resolve_device
+
+    resolve_device("cuda")
+    card = _nvidia_smi()
+    print(card, flush=True)
+    phase_build()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        counts = phase_mesh(workdir, card)
+    print(f"[launches] mesh: {json.dumps(counts)}", flush=True)
+    print(f"[phase] mesh: {time.perf_counter() - t0:.2f} s", flush=True)
+    return 0
+
+
 def _kernel_entry(name, source, replaces, rows, headline, launches, shadow=False) -> dict:
     """The kernels line's entry: the row ``headline``'s numbers, or with
     ``shadow`` those of its variant that writes W's bf16 shadow (the one
@@ -3522,10 +3878,13 @@ def main() -> int:
         export_counts = timed("export", phase_export, workdir, card, atlas_gps, serve_latency)
         placement_counts, placement_fwd_rows, placement_bwd_rows = timed(
             "placement", phase_placement, workdir, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_counts = timed("mesh", phase_mesh, workdir, card)
     ab_counts = timed("ab_xt", phase_ab_xt)
     by_phase = {"render": render_counts, "serve": serve_counts, "train": train_counts, "data": data_counts,
                 "decoders": decoder_counts, "implicit": implicit_counts, "export": export_counts,
-                "placement": placement_counts}
+                "placement": placement_counts, "mesh": mesh_counts}
     print(f"[launches] by phase: {json.dumps(by_phase)}", flush=True)
     launches = {k: sum(c[k] for c in by_phase.values()) for k in render_counts}
     launches["fused_dw_adamw_xt"] = ab_counts["fused_dw_adamw_xt"]
@@ -3650,6 +4009,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 3:
+        sys.exit(mesh_rank(sys.argv[2]))
+    if sys.argv[1:] == ["--mesh-only"]:
+        sys.exit(mesh_only())
     if sys.argv[1:] == ["--step-memory"]:
         sys.exit(step_memory())
     if sys.argv[1:2] == ["--serve-repeats"] and len(sys.argv) == 3:

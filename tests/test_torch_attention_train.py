@@ -42,6 +42,9 @@ from ai_font_renderer_tpu_torch.ops import (
 from ai_font_renderer_tpu_torch.ops.fused_attention import _wide_bytes, attention_wide_plan, kernel_takes
 from ai_font_renderer_tpu_torch.ops import philox
 from ai_font_renderer_tpu_torch.train import step as tstep
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
 B, S, E, H = 8, 32, 32, 4

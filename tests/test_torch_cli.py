@@ -15,6 +15,9 @@ from ai_font_renderer_tpu_torch.config import ModelConfig
 from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
 from ai_font_renderer_tpu_torch.models import font_renderer as tfr
 from ai_font_renderer_tpu_torch.utils.checkpoint import save_params
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SMALL = ModelConfig(max_length=16, hidden_dim=16, sheet_height=16, sheet_width=24)
@@ -84,9 +87,12 @@ def test_other_subcommands_and_serve_flags_exit_1(weights, capsys, monkeypatch, 
     # export is ported: on a missing weights file it exits 1 and says so.
     assert cli.main(["export", "--weights", str(tmp_path / "nope.npz"), "--device", "cpu"]) == 1
     assert "weights file not found" in capsys.readouterr().out
-    # train-placement is ported; only a device mesh is refused.
-    assert cli.main(["train-placement", "--mesh", "2", "--device", "cpu"]) == 1
-    assert "item 15" in capsys.readouterr().out
+    # train-placement --mesh is ported: a batch the mesh does not divide
+    # trips its guard before any data work, as JAX's
+    # test_cli_mesh_flag_registered_and_guarded.
+    with pytest.raises(SystemExit):
+        cli.main(["train-placement", "--mesh", "3", "--batch", "1024", "--samples", "100", "--device", "cpu"])
+    assert "not divisible by --mesh 3" in capsys.readouterr().err
     # serve --int8 is ported: it serves until interrupted, then exits 0.
     import time
 
@@ -189,8 +195,10 @@ def test_chip_smoke_refuses_without_a_card():
 def _fake_training(monkeypatch):
     seen = {}
 
-    def fake_run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=False, device=None):
-        seen.update(mcfg=mcfg, tcfg=tcfg, font=font, checkpoint_dir=checkpoint_dir, resume=resume, device=device)
+    def fake_run_training(mcfg, tcfg, output_dir, font=None, checkpoint_dir=None, resume=False, device=None,
+                          mesh=None):
+        seen.update(mcfg=mcfg, tcfg=tcfg, font=font, checkpoint_dir=checkpoint_dir, resume=resume, device=device,
+                    mesh=mesh)
         raise SystemExit(0)  # skip save/render
 
     monkeypatch.setattr(cli, "run_training", fake_run_training)
@@ -245,8 +253,8 @@ def test_kernels_flag_selects_the_projection_kernels(monkeypatch, tmp_path, kern
 @pytest.mark.parametrize(
     "argv,words",
     [
-        (["--mesh", "3"], "item 15"),
-        (["--mesh", "2,1"], "item 15"),
+        (["--mesh", "3"], "--mesh expects DATA,MODEL"),
+        (["--mesh", "2,1,1"], "--mesh expects DATA,MODEL"),
     ],
 )
 def test_later_slice_training_flags_exit_1(monkeypatch, tmp_path, capsys, argv, words):

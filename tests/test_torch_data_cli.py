@@ -34,6 +34,9 @@ from ai_font_renderer_tpu_torch.fontgen import dataset as tds
 from ai_font_renderer_tpu_torch.models import font_renderer as tfr
 from ai_font_renderer_tpu_torch.utils import torch_interop as tti
 from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config, save_params
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 SMALL_SPEC = dict(width=60, height=20, max_chars=24)
 # The narrowed model of tests/test_torch_cli.py.

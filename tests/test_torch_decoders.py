@@ -27,6 +27,9 @@ from ai_font_renderer_tpu_torch.ops import fused_attention, fused_attention2
 from ai_font_renderer_tpu_torch.train import step as tstep
 from ai_font_renderer_tpu_torch.utils import checkpoint as tckpt
 from ai_font_renderer_tpu_torch.utils.torch_interop import to_state_dict
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 DECODERS = ("conv", "conv_ps")
 NO_DROPOUT = dict(dropout_rate=0.0, fc_dropout_rate=0.0)
@@ -559,7 +562,8 @@ def test_projection_kernels_with_a_conv_decoder_exit_1(decoder, kernels, tmp_pat
 def _seen_configs(monkeypatch):
     seen = {}
 
-    def fake_run_training(mcfg, tcfg_, output_dir, font=None, checkpoint_dir=None, resume=False, device=None):
+    def fake_run_training(mcfg, tcfg_, output_dir, font=None, checkpoint_dir=None, resume=False, device=None,
+                          mesh=None):
         seen.update(mcfg=mcfg, tcfg=tcfg_)
         raise SystemExit(0)
 

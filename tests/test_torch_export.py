@@ -57,6 +57,9 @@ from ai_font_renderer_tpu_torch.utils.export import (
     render_exported,
     render_exported_u8,
 )
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_KW = dict(embedding_dim=8, num_heads=2, hidden_dim=8, max_length=12, sheet_height=8, sheet_width=16)

@@ -23,6 +23,9 @@ from ai_font_renderer_tpu_torch.config import PRINTABLE_ASCII, SheetSpec
 from ai_font_renderer_tpu_torch.fontgen import dataset as tds
 from ai_font_renderer_tpu_torch.fontgen import native, raster, sheets
 from ai_font_renderer_tpu_torch.train import loop as tloop
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 # tests/test_golden.py's locks on the dataset definition.
 CORPUS16_SHEETS_SHA = "1a02fab08632dda345b8a928ae742ef97862fc53ba8ef9d4867de66b5f50349d"

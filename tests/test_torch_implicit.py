@@ -52,6 +52,9 @@ from ai_font_renderer_tpu_torch.fontgen.ttf import TrueTypeFont
 from ai_font_renderer_tpu_torch.models import siren as ts
 from ai_font_renderer_tpu_torch.render import implicit_sheet as tis
 from ai_font_renderer_tpu_torch.utils import checkpoint as tck
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 ART = os.path.join(os.path.dirname(__file__), "..", "artifacts")
 FONTS = {"firacode": FIRACODE_PATH, "montserrat": MONTSERRAT_PATH}

@@ -31,6 +31,9 @@ from ai_font_renderer_tpu_torch.models import siren as tsiren
 from ai_font_renderer_tpu_torch.models.font_renderer import params_from_jax
 from ai_font_renderer_tpu_torch.train import implicit as timplicit
 from ai_font_renderer_tpu_torch.train import optim
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 FONTS = {"firacode": FIRACODE_PATH, "montserrat": MONTSERRAT_PATH}
 CHARSET = "AgW.|é0 q@"  # 10 glyphs: ink, a descender, a blank, a non-ASCII one

@@ -32,6 +32,9 @@ from ai_font_renderer_tpu.utils.torch_interop import (  # noqa: E402
     save_pth,
     to_state_dict,
 )
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 # Strict-f32 config: parity is measured without the bf16 fast paths.
 F32_CFG = ModelConfig(bf16_matmul=False)

@@ -30,6 +30,9 @@ from ai_font_renderer_tpu_torch.config import ModelConfig
 from ai_font_renderer_tpu_torch.models import font_renderer as tfr
 from ai_font_renderer_tpu_torch.models import placement as tp
 from ai_font_renderer_tpu_torch.utils.checkpoint import load_params_with_config
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 ART = os.path.join(os.path.dirname(__file__), "..", "artifacts", "{}", "placement_finetuned.npz")
 MID_TOL = 1e-4

@@ -46,6 +46,9 @@ from ai_font_renderer_tpu_torch.render import implicit_sheet as tis
 from ai_font_renderer_tpu_torch.train import optim
 from ai_font_renderer_tpu_torch.train import placement_cli as tcli
 from ai_font_renderer_tpu_torch.utils.checkpoint import CheckpointManager
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 FONTS = {"firacode": FIRACODE_PATH, "montserrat": MONTSERRAT_PATH}
 LOSS_REL_TOL = 1e-5

@@ -24,6 +24,9 @@ from ai_font_renderer_tpu_torch.config import SheetSpec
 from ai_font_renderer_tpu_torch.fontgen import dataset as tds
 from ai_font_renderer_tpu_torch.fontgen import proportional as tprop
 from ai_font_renderer_tpu_torch.fontgen.textgen import generate_corpus
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 SMALL = dict(width=120, height=40, max_chars=40)
 EDGE = ["", "   ", "WWWWWWWWWWWWWWWWWWWWWWWWWWWWWW", "IIIIIIIIIIIIIIIIIIII", "AV TO WA", "A" * 130]

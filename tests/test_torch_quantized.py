@@ -23,6 +23,9 @@ from ai_font_renderer_tpu_torch.ops import quantized as tq
 from ai_font_renderer_tpu_torch.render import render_atlas, render_batch, render_batch_u8_async
 from ai_font_renderer_tpu_torch.render.server import RenderServer, request_render
 from ai_font_renderer_tpu_torch.utils.checkpoint import save_params
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 SMALL = dict(max_length=16, hidden_dim=16, sheet_height=16, sheet_width=24)
 SHEET_ATOL = 1e-6

@@ -24,6 +24,9 @@ from ai_font_renderer_tpu_torch.render import (
     render_strings,
 )
 from ai_font_renderer_tpu_torch.utils import checkpoint as tckpt
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 SMALL = dict(max_length=16, hidden_dim=16, sheet_height=16, sheet_width=24)
 STRINGS = ["HELLO", "WORLD WIDE", "", "A" * 30]

@@ -16,6 +16,9 @@ from ai_font_renderer_tpu_torch.fontgen.bmp import read_bmp
 from ai_font_renderer_tpu_torch.models.font_renderer import params_from_jax
 from ai_font_renderer_tpu_torch.render.render import render_batch
 from ai_font_renderer_tpu_torch.render.server import RenderServer, request_render
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 SMALL = dict(max_length=16, sheet_height=16, sheet_width=48)
 MCFG = ModelConfig(**SMALL)

@@ -26,6 +26,9 @@ from ai_font_renderer_tpu_torch.fontgen import shaped as tshaped
 from ai_font_renderer_tpu_torch.fontgen import shaping as tshaping
 from ai_font_renderer_tpu_torch.fontgen.textgen import generate_corpus
 from ai_font_renderer_tpu_torch.fontgen.ttf import TrueTypeFont
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 FONTS = {"firacode": FIRACODE_PATH, "montserrat": MONTSERRAT_PATH}
 LIGATURES = ["->", "=>", "!=", "===", "<=>", "::", "www", "<!-- x -->", "a -> b != c", "|| && ++"]

@@ -29,6 +29,9 @@ from ai_font_renderer_tpu_torch.train import loop as tloop
 from ai_font_renderer_tpu_torch.train import step as tstep
 from ai_font_renderer_tpu_torch.train.schedule import CosineSchedule
 from ai_font_renderer_tpu_torch.utils.checkpoint import CheckpointManager
+from test_torch_native_build import install_reference_native
+
+install_reference_native()
 
 SMALL = dict(max_length=24, sheet_height=20, sheet_width=60)
 NO_DROPOUT = dict(dropout_rate=0.0, fc_dropout_rate=0.0)
@@ -46,10 +49,15 @@ def _pair(mkw=None, tkw=None):
 
 
 @pytest.fixture(scope="module")
-def datasets():
-    """The tiny setup of tests/test_train.py:74-84, built by each package."""
+def datasets(tmp_path_factory):
+    """The tiny setup of tests/test_train.py:74-84, built by each package;
+    the JAX package's caches in a directory of this module's own."""
     spec = dict(width=60, height=20, max_chars=24)
-    jds = jax_build_dataset(jax_bake_atlas(jcfg.FIRACODE_PATH, jcfg.SheetSpec(**spec)), 96, synth_batch=32)
+    cache = str(tmp_path_factory.mktemp("jax_cache"))
+    jds = jax_build_dataset(
+        jax_bake_atlas(jcfg.FIRACODE_PATH, jcfg.SheetSpec(**spec), cache_dir=cache), 96, synth_batch=32,
+        cache_dir=cache,
+    )
     tds = build_device_dataset(bake_atlas(tcfg.FIRACODE_PATH, tcfg.SheetSpec(**spec)), 96, synth_batch=32, device="cpu")
     return jds, tds
 
