@@ -5,6 +5,7 @@
     python3 chip_smoke.py --step-memory   # only the peak memory of one training step
     python3 chip_smoke.py --serve-repeats N   # only phase 4's requests, on N servers
     python3 chip_smoke.py --mesh-only       # only the build and phase 11, the device mesh
+    python3 chip_smoke.py --tools-only      # only the build and phase 12, the measurement tools
 
 Phases, each of which raises on failure, each with its seconds:
 
@@ -41,8 +42,7 @@ Phases, each of which raises on failure, each with its seconds:
    mu, and K9 (K4 on a transposed x) at M = 1024, each on a W with a bf16
    shadow, which the update must rewrite bit for bit (the TMA + wgmma GEMM
    of K3 with the AdamW update as its epilogue; times with and without the
-   shadow, against the dW product + torch._fused_adamw_), then the K4/K9
-   A/B of tools/ab_kernel_micro.py, whose launches are K9's main path.
+   shadow, against the dW product + torch._fused_adamw_).
 3. Render: full-width (123M-parameter) weights from a seed, saved and
    loaded through the port's npz format, the 15 test strings rendered to
    BMPs with both kernels on, the sheets checked against the plain path on
@@ -174,13 +174,26 @@ Phases, each of which raises on failure, each with its seconds:
    the ranks' parameters bit for bit; (d) `--mesh 2,1` on one card exits 1
    with make_mesh's message. `--mesh-only` runs the build and this phase
    alone.
-12. One JSON line listing every kernel (K1-K9, the operand pass, the
+12. The measurement tools (ai_font_renderer_tpu_torch/tools/), each in
+   this process at its JAX tool's shapes, only iteration counts cut, every
+   JSON line it prints parsed: ab_kernel_micro (K9's home: the library dW
+   + AdamW, K4 and K9, which must launch), trace_step of the `fused`,
+   `attn_v1` and `attn_v2_fast` steps (each device's busy + idle within
+   1e-3 ms of its span), profile_train, ab_profiles, roofline_bwd,
+   ab_fused, ab_fused_attention, bench_inference, bench_batch_sweep,
+   bench_serve (a reply byte-equal to a direct render) and
+   bench_neural_render; the seconds of each. `--tools-only` runs the build
+   and this phase alone.
+13. One JSON line listing every kernel (K1-K9, the operand pass, the
    GEMMs of K2 and K3, the bf16 attention forward and backward on
    tensor cores, and the general attention forward and backward) with its
-   launches on the
-   main paths (phases 3-11, both mesh ranks' included, and the K4/K9 A/B;
+   launches on the main paths (phases 3-12, both mesh ranks' included;
    counts are set to 0 just before each drive and read just after), its
    error and its times.
+
+Every profiled call (the atlas, a training step, a placement step, the
+joint fine-tune step) goes through utils/profiling.trace and must hold
+each port kernel as many times as its launch counter rose during it.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -1161,41 +1174,19 @@ def check_dw_adamw_xt(m=1024, k=6400, n=19200) -> list[dict]:
     return [row]
 
 
-def phase_ab_xt(m=1024, k=6400, n=19200, iters=10) -> dict:
-    """The K4/K9 A/B of tools/ab_kernel_micro.py (main and main_xt), the
-    only path that runs K9: x [M, K] and xt [K, M] bf16, gm * 1e-4, w
-    random, zero moments (mu bf16), step 3, each chained over ``iters``
-    updates of one state, timed in turns K4, K9, K9, K4 by CUDA events."""
-    from ai_font_renderer_tpu_torch.ops.fused_dw_adamw import (
-        XT_B1,
-        XT_B2,
-        XT_WD,
-        fused_dw_adamw,
-        fused_dw_adamw_xt,
-    )
+def phase_ab_xt() -> dict:
+    """The K4/K9 A/B of ai_font_renderer_tpu_torch/tools/ab_kernel_micro.py,
+    K9's home and the only path that runs it, at its full shapes with the
+    JAX tool's tile arguments and ``xt`` -> its launches."""
+    from ai_font_renderer_tpu_torch.tools import ab_kernel_micro
 
-    g = torch.Generator(device="cuda").manual_seed(15)
-    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-    xt = x.T.contiguous()
-    gm = (torch.randn(m, n, generator=g, device="cuda") * 1e-4).to(torch.bfloat16)
-    w = torch.randn(k, n, generator=g, device="cuda") * 0.01
-    mu = torch.zeros(k, n, device="cuda", dtype=torch.bfloat16)
-    nu = torch.zeros(k, n, device="cuda")
-    runs = {
-        "K4": lambda: fused_dw_adamw(x, gm, w, mu, nu, 1e-3, XT_WD, XT_B1, XT_B2, 3),
-        "K9": lambda: fused_dw_adamw_xt(xt, gm, w, mu, nu, 1e-3, 3),
-    }
     torch.cuda.synchronize()
     _reset_counts()
-    times = {"K4": [], "K9": []}
-    for name in ("K4", "K9", "K9", "K4"):
-        times[name].append(time_ms(runs[name], iters))
+    ab_kernel_micro.main(["256", "640", "384", "xt"])
+    torch.cuda.synchronize()
     counts = _counts()
-    ab = {name: sum(t) / len(t) for name, t in times.items()}
-    print(f"[ab_xt] K4 (x [M,K]) vs K9 (xt [K,M]) at M={m}: ms per update {json.dumps(ab)}, "
-          f"runs {json.dumps(times)}; launches {counts}", flush=True)
-    if counts["fused_dw_adamw_xt"] <= 0:
-        raise AssertionError(f"the A/B never launched K9: {counts}")
+    if counts["fused_dw_adamw_xt"] <= 0 or counts["fused_dw_adamw"] <= 0:
+        raise AssertionError(f"ab_kernel_micro never launched K9 or K4: {counts}")
     return counts
 
 
@@ -1261,23 +1252,61 @@ def _profile_atlas(params, strings, mcfg) -> None:
                 top=6)
 
 
-def _profile_fn(tag: str, fn, top: int = 5) -> None:
-    """One profiled call of ``fn``, ending in a sync: its wall time, the
-    device's kernel time and busy share, and the kernels that took most."""
+def _profile_fn(tag: str, fn, top: int = 5) -> dict:
+    """One profiled call of ``fn`` through utils.profiling.trace, ending in
+    a sync: its wall time, the device's kernel time, launches and busy
+    share, and the kernels that took most, all from the Chrome trace's
+    kernel records, beside how many of them the profiler's own table
+    (``prof.events()``) holds and how many of the trace's opening kernels
+    it kept; the trace must hold each port kernel as many times as its
+    launch counter rose during the call. Returns {port kernel: launches}."""
     from torch.autograd import DeviceType
 
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[profile] {tag}: wall {wall_ms:.2f} ms (profiled), device kernels {busy_ms:.2f} ms, busy share "
-          f"{busy_ms / wall_ms:.3f}", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}", flush=True)
+    from ai_font_renderer_tpu_torch.utils.profiling import (
+        OPENING_KERNELS,
+        check_launches,
+        device_kernels,
+        launch_counts,
+        opening_kernels,
+        trace,
+        trace_events,
+    )
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir) as prof:
+            before = launch_counts()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            after = launch_counts()
+        events = trace_events(log_dir)
+    kernels = device_kernels(events)
+    table = [e for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))
+             and "spin_kernel" not in e.name]
+    by_name = {}
+    for k in kernels:
+        us, n = by_name.get(k["name"], (0.0, 0))
+        by_name[k["name"]] = (us + k["dur"], n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    print(f"[profile] {tag}: wall {wall_ms:.2f} ms (profiled), device kernels {busy_ms:.2f} ms in {len(kernels)} "
+          f"launches (the profiler's table holds {len(table)}), busy share {busy_ms / wall_ms:.3f}; the trace kept "
+          f"{opening_kernels(events)} of its {OPENING_KERNELS} opening kernels", flush=True)
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[profile]   {us / 1e3:9.3f} ms  {n:4d}x  {name[:90]}", flush=True)
+    try:
+        launched = check_launches([k["name"] for k in kernels], before, after)
+    except AssertionError:
+        # What the trace holds of the port's launches: the runtime calls
+        # that launched them and the kernels' records, in time order.
+        ours = [(e["ts"], e.get("cat"), e["name"][:60]) for e in events
+                if e.get("ph") == "X" and (e.get("cat") == "cuda_runtime" and "LaunchKernelEx" in e["name"]
+                                           or "attention" in e["name"] or "sm90::" in e["name"])]
+        print(f"[profile]   trace records of the port's launches: {json.dumps(sorted(ours))}", flush=True)
+        raise
+    print(f"[profile]   every port kernel's launches in the trace, as counted: {json.dumps(launched)}", flush=True)
+    return launched
 
 
 def _render_test_strings(params, mcfg, out_dir: str, tag: str) -> None:
@@ -1545,8 +1574,9 @@ def serve_repeats(repeats: int) -> int:
     one after the other, after what precedes the serve phase on the main
     path (weights from its seed, the test strings and a profiled atlas
     render with K1 and the v1 attention), each run's latencies beside its
-    stalls (see _serve_once). Uses no counter of the kernels, so it runs on
-    an earlier tree of the port too."""
+    stalls (see _serve_once). It reads no counter of the kernels but the
+    atlas profile's launch check, so it runs on a tree of the port that
+    has utils/profiling.py."""
     from ai_font_renderer_tpu_torch.config import ModelConfig
     from ai_font_renderer_tpu_torch.models import font_renderer
     from ai_font_renderer_tpu_torch.render import render_batch
@@ -1570,29 +1600,14 @@ def serve_repeats(repeats: int) -> int:
 
 
 def _profile_step(state, ds, idx, mcfg, tcfg, name: str) -> None:
-    """One training step under torch.profiler: wall time, device kernel
-    time, busy share, and the kernels that take the most device time."""
-    from torch.autograd import DeviceType
-
+    """One training step under _profile_fn, the 12 kernels that take the
+    most device time."""
     from ai_font_renderer_tpu_torch.train.step import train_step
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     batch = ds.gather_batch(idx)
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        train_step(state, *batch, 1e-3, gen, mcfg, tcfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    print(f"[profile] train step ({name}): wall {wall_ms:.2f} ms (profiled), device kernels "
-          f"{busy_ms:.2f} ms in {launches} launches, busy share {busy_ms / wall_ms:.3f}", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}",
-              flush=True)
+    _profile_fn(f"train step ({name})", lambda: train_step(state, *batch, 1e-3, gen, mcfg, tcfg), top=12)
 
 
 def _attention_step_checks(results, batch, base, fast) -> None:
@@ -3366,6 +3381,9 @@ def _placement_kernel_checks(workdir: str, card: str) -> dict:
         torch.cuda.synchronize()
         rates[f"joint fine-tune {dims} fused_attention"] = 5 / (time.perf_counter() - t0)
         rates[f"joint fine-tune {dims} peak MiB above its inputs"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+        if e == 64:
+            _profile_fn(f"joint fine-tune step, B=64, {dims}, fused_attention, dropout 0.2",
+                        lambda: step(tunable, state, ft_codes, ids, valid, gt), top=12)
         del tunable, state, params
     print(f"[placement] steps/s (10 after 2 warm; supervised at batch 1024, fine-tune at 64, 5 steps) and peak "
           f"memory: {json.dumps({k: round(v, 2) for k, v in rates.items()})} ({card})", flush=True)
@@ -3788,6 +3806,108 @@ def phase_mesh(workdir: str, card: str) -> dict:
     return counts
 
 
+# -- phase 12: the measurement tools ---------------------------------------
+# trace_step's kernel sets: the training paths of phase 5 (PERF.md's names).
+TRACE_PATHS = {"fused": ("parity", "fused"), "attn_v1": ("parity", "fused,attention"),
+               "attn_v2_fast": ("fast_hr_rematdots", "attention_v2")}
+SPAN_TOL_MS = 1e-3  # trace_step: busy + idle against the span
+
+
+def _tool(name: str, fn) -> tuple[list, float]:
+    """``fn()`` (a tool's main) in this process, its output kept and shown
+    after it -> (its JSON lines, seconds). Every line that opens with "{"
+    must parse as JSON."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            fn()
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tools] {name}: {seconds:.2f} s, {len(rows)} JSON lines parsed", flush=True)
+    return rows, seconds
+
+
+def phase_tools(workdir: str, card: str) -> dict:
+    """Phase 12: each measurement tool of ai_font_renderer_tpu_torch/tools/
+    in this process at the JAX tool's shapes, only the iteration counts cut
+    -> the phase's launches. ab_kernel_micro (K9's home) must launch K9;
+    trace_step runs the `fused`, `attn_v1` and `attn_v2_fast` steps, each
+    device's busy + idle equal to its span."""
+    from ai_font_renderer_tpu_torch.tools import (
+        ab_fused,
+        ab_fused_attention,
+        ab_profiles,
+        bench_batch_sweep,
+        bench_inference,
+        bench_neural_render,
+        bench_serve,
+        profile_train,
+        roofline_bwd,
+        trace_step,
+    )
+
+    seconds = {}
+    _, seconds["ab_kernel_micro"] = _tool("ab_kernel_micro", phase_ab_xt)
+    traces = {}
+    for name, (profile, kernels) in TRACE_PATHS.items():
+        rows, seconds[f"trace_step {name}"] = _tool(f"trace_step {name}", lambda p=profile, k=kernels: trace_step.main(
+            [p, "--kernels", k], log_root=os.path.join(workdir, "traces")))
+        row = rows[0]
+        gpu = row.get("GPU 0")
+        if not gpu or gpu["events"] <= 0 or abs(gpu["busy_ms"] + gpu["idle_ms"] - gpu["span_ms"]) > SPAN_TOL_MS:
+            raise AssertionError(f"trace_step {name}: no device events, or busy + idle is not the span: {gpu}")
+        traces[name] = {"busy_ms_per_step": gpu["busy_ms_per_step"], "idle_ms_per_step": gpu["idle_ms_per_step"],
+                        "wall_ms_per_step_traced": row["wall_ms_per_step_traced"], **row["wall_ms_per_step"],
+                        "longest_idle_gaps": gpu["longest_idle_gaps"]}
+    runs = {
+        "profile_train": lambda: profile_train.main([], iters=5, steps=5),
+        "ab_profiles": lambda: ab_profiles.main(["fast", "fast_handrolled"], rounds=2),
+        "roofline_bwd": lambda: roofline_bwd.main([], iters=5, windows=2),
+        "ab_fused": lambda: ab_fused.main([], rounds=1),
+        "ab_fused_attention": lambda: ab_fused_attention.main([], iters=10, rounds=2, epochs=1),
+        "bench_inference": lambda: bench_inference.main([], iters=10, rounds=2),
+        "bench_batch_sweep": lambda: bench_batch_sweep.main([], iters=5, rounds=1),
+        "bench_serve": lambda: bench_serve.main(["4", "5", "64", "--format", "raw,zlib"]),
+        "bench_neural_render": lambda: bench_neural_render.main(["--iters", "3"]),
+    }
+    for name, run in runs.items():
+        _, seconds[name] = _tool(name, run)
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"[tools] trace_step per step (ms; {card}): {json.dumps(traces)}", flush=True)
+    print(f"[tools] seconds by tool: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}; "
+          f"{sum(seconds.values()):.2f} s in all", flush=True)
+    return counts
+
+
+def tools_only() -> int:
+    """``--tools-only``: the kernels' build, then phase 12 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
+        return 2
+    from ai_font_renderer_tpu_torch.device import resolve_device
+
+    resolve_device("cuda")
+    card = _nvidia_smi()
+    print(card, flush=True)
+    phase_build()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        counts = phase_tools(workdir, card)
+    print(f"[launches] tools: {json.dumps(counts)}", flush=True)
+    print(f"[phase] tools: {time.perf_counter() - t0:.2f} s", flush=True)
+    return 0
+
+
 def mesh_only() -> int:
     """``--mesh-only``: the kernels' build, then phase 11 alone."""
     if not torch.cuda.is_available():
@@ -3881,13 +4001,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         mesh_counts = timed("mesh", phase_mesh, workdir, card)
-    ab_counts = timed("ab_xt", phase_ab_xt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tools_counts = timed("tools", phase_tools, workdir, card)
     by_phase = {"render": render_counts, "serve": serve_counts, "train": train_counts, "data": data_counts,
                 "decoders": decoder_counts, "implicit": implicit_counts, "export": export_counts,
-                "placement": placement_counts, "mesh": mesh_counts}
+                "placement": placement_counts, "mesh": mesh_counts, "tools": tools_counts}
     print(f"[launches] by phase: {json.dumps(by_phase)}", flush=True)
     launches = {k: sum(c[k] for c in by_phase.values()) for k in render_counts}
-    launches["fused_dw_adamw_xt"] = ab_counts["fused_dw_adamw_xt"]
 
     src = "ai_font_renderer_tpu_torch/csrc/"
     kernels = [
@@ -4013,6 +4134,8 @@ if __name__ == "__main__":
         sys.exit(mesh_rank(sys.argv[2]))
     if sys.argv[1:] == ["--mesh-only"]:
         sys.exit(mesh_only())
+    if sys.argv[1:] == ["--tools-only"]:
+        sys.exit(tools_only())
     if sys.argv[1:] == ["--step-memory"]:
         sys.exit(step_memory())
     if sys.argv[1:2] == ["--serve-repeats"] and len(sys.argv) == 3:
