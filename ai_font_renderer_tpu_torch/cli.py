@@ -48,6 +48,8 @@ the batch splits DATA ways, the output projection's columns MODEL ways;
 with DATA x MODEL above 1 the CLI starts that many ranks of itself, one a
 visible card (NCCL), or with ``--device cpu`` CPU ranks (gloo), and rank 0
 writes what the one-device run writes. ``--mesh 1,1`` is the one-device run.
+``AFR_DUMP_AFTER=<seconds>`` in the environment dumps every thread's stack
+to stderr after that long and exits, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -771,8 +773,21 @@ def _launch_mesh(argv: list[str], args, shape: tuple[int, int], output_dir: str)
     return pmesh.launch(["-m", "ai_font_renderer_tpu_torch", *rank_argv], data * model, device)
 
 
+def arm_dump_after(var: str) -> None:
+    """Opt-in hang diagnostics, the JAX CLI's contract: ``var`` set to a
+    number of seconds arms a wall-clock deadline that dumps every thread's
+    stack to stderr and exits. It is a deadline, not an idle watchdog: set
+    it above the run's expected wall time."""
+    dump_after = os.environ.get(var)
+    if dump_after:
+        import faulthandler
+
+        faulthandler.dump_traceback_later(float(dump_after), exit=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    arm_dump_after("AFR_DUMP_AFTER")
     if argv and argv[0] in ("render", "serve", "fontgen", "eval", "export"):
         return _subcommands(argv)
     if argv and argv[0] == "train-placement":

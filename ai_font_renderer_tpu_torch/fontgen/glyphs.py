@@ -1,7 +1,10 @@
 """Per-glyph raster + SDF targets for the implicit-model families.
 
-The port's own copy of ai_font_renderer_tpu/fontgen/glyphs.py, code
-unchanged: host numpy over the port's TTF parser and native rasterizer.
+The port's own copy of ai_font_renderer_tpu/fontgen/glyphs.py: host numpy
+over the port's TTF parser and native rasterizer. Its distance transform
+takes the exact minimum by brute force over every glyph of a chunk at once
+(the JAX package walks each row's lower envelope in Python); both give the
+same distances.
 
 Supports the extended configs (BASELINE.json): coordinate-conditioned
 implicit glyph MLPs (SIREN), the multi-font-conditioned model, and the
@@ -10,7 +13,7 @@ SDF-head model. Produces, per charset glyph:
   * coverage rasters at an arbitrary cell resolution (e.g. 64x64) via the
     same analytic rasterizer as the sheet pipeline;
   * signed distance fields computed with an exact two-pass Euclidean
-    distance transform (Felzenszwalb-Huttenlocher) on the coverage bitmap:
+    distance transform on the coverage bitmap:
     positive outside ink, negative inside, in pixel units.
 """
 
@@ -89,45 +92,40 @@ def rasterize_charset(
     )
 
 
-def _edt_1d(f: np.ndarray) -> np.ndarray:
-    """Felzenszwalb-Huttenlocher 1D squared distance transform."""
-    n = len(f)
-    d = np.empty(n)
-    v = np.zeros(n, np.int64)
-    z = np.empty(n + 1)
-    k = 0
-    v[0] = 0
-    z[0], z[1] = -np.inf, np.inf
-    for q in range(1, n):
-        while True:
-            p = v[k]
-            s = ((f[q] + q * q) - (f[p] + p * p)) / (2 * q - 2 * p)
-            if s <= z[k]:
-                k -= 1
-            else:
-                break
-        k += 1
-        v[k] = q
-        z[k], z[k + 1] = s, np.inf
-    k = 0
-    for q in range(n):
-        while z[k + 1] < q:
-            k += 1
-        p = v[k]
-        d[q] = (q - p) ** 2 + f[p]
-    return d
+def _min_plus_rows(f: np.ndarray) -> np.ndarray:
+    """1D squared distance transform along the last axis of ``f``:
+    d[..., q] = min_p f[..., p] + (q - p)^2, the exact minimum by brute
+    force over all p (the lower envelope Felzenszwalb-Huttenlocher walk
+    finds the same minimum), vectorized over every leading axis."""
+    n = f.shape[-1]
+    i = np.arange(n, dtype=np.float64)
+    d2 = (i[:, None] - i[None, :]) ** 2  # [q, p]
+    return (d2 + f[..., None, :]).min(-1)
 
 
 def _edt_2d(binary: np.ndarray) -> np.ndarray:
-    """Exact Euclidean distance (pixels) to the nearest True cell."""
+    """Exact Euclidean distance (pixels) to the nearest True cell of each
+    [h, w] image of ``binary`` [..., h, w]: two separable passes."""
     INF = 1e12
-    h, w = binary.shape
-    f = np.where(binary, 0.0, INF)
-    for y in range(h):
-        f[y] = _edt_1d(f[y])
-    for x in range(w):
-        f[:, x] = _edt_1d(f[:, x])
-    return np.sqrt(f)
+    f = _min_plus_rows(np.where(binary, 0.0, INF))
+    f = _min_plus_rows(np.swapaxes(f, -1, -2))
+    return np.sqrt(np.swapaxes(f, -1, -2))
+
+
+def _coverage_to_sdf(coverage: np.ndarray, threshold: float) -> np.ndarray:
+    """:func:`coverage_to_sdf` of each [h, w] image of ``coverage``
+    [B, h, w] at once."""
+    inside = coverage >= threshold
+    d_out = _edt_2d(inside)  # distance to ink, for outside pixels
+    d_in = _edt_2d(~inside)  # distance to background, for inside pixels
+    sdf = np.where(inside, -(d_in - 0.5), d_out - 0.5)
+    # AA-aware boundary refinement: where coverage is fractional, the true
+    # edge sits at (0.5 - coverage) pixels from the pixel center.
+    frac = (coverage > 0.02) & (coverage < 0.98)
+    sdf = np.where(frac, 0.5 - coverage, sdf).astype(np.float32)
+    empty = ~inside.any(axis=(-1, -2))
+    sdf[empty] = np.float32(coverage.shape[-2])
+    return sdf
 
 
 def coverage_to_sdf(coverage: np.ndarray, threshold: float = 0.5) -> np.ndarray:
@@ -136,17 +134,7 @@ def coverage_to_sdf(coverage: np.ndarray, threshold: float = 0.5) -> np.ndarray:
     Uses the exact EDT both ways and subtracts, with a half-pixel coverage
     correction at the boundary from the antialiased edge values.
     """
-    inside = coverage >= threshold
-    if not inside.any():
-        return np.full(coverage.shape, np.float32(coverage.shape[0]))
-    d_out = _edt_2d(inside)  # distance to ink, for outside pixels
-    d_in = _edt_2d(~inside)  # distance to background, for inside pixels
-    sdf = np.where(inside, -(d_in - 0.5), d_out - 0.5)
-    # AA-aware boundary refinement: where coverage is fractional, the true
-    # edge sits at (0.5 - coverage) pixels from the pixel center.
-    frac = (coverage > 0.02) & (coverage < 0.98)
-    sdf = np.where(frac, 0.5 - coverage, sdf)
-    return sdf.astype(np.float32)
+    return _coverage_to_sdf(coverage[None], threshold)[0]
 
 
 def sdf_charset(
@@ -154,4 +142,6 @@ def sdf_charset(
 ) -> np.ndarray:
     """[len(charset), cell, cell] signed distance fields."""
     cov = rasterize_charset(font_path, charset, cell, fill)
-    return np.stack([coverage_to_sdf(c) for c in cov])
+    chunk = max(1, 2**22 // cell**3)  # [chunk, cell, cell, cell] f64 a pass: 32 MiB
+    parts = [_coverage_to_sdf(cov[s : s + chunk], 0.5) for s in range(0, len(cov), chunk)]
+    return np.concatenate(parts) if parts else np.zeros((0, cell, cell), np.float32)

@@ -97,3 +97,34 @@ def best_s(run, iters: int, rounds: int, device: torch.device, finish=None) -> f
         finish()
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+def sheet_dataset(font_path: str, mcfg, samples: int, device: torch.device):
+    """The training corpus of ``samples`` strings for ``font_path`` at
+    ``mcfg``'s sheet geometry, on ``device``, as the CLI builds it: the
+    monospace grid (FiraCode) or the proportional pen walk (Montserrat)."""
+    from ..cli import _build_dataset
+    from ..config import TrainConfig
+
+    return _build_dataset(mcfg, TrainConfig(num_samples=samples), font_path, device)[1]
+
+
+def train_recipe(name: str, font_path: str, mcfg, tcfg, samples: int, device: torch.device, out: str,
+                 weights: str, resume: bool = False):
+    """One training run of a runner tool: the corpus, ``train`` with the
+    test strings rendered every ``tcfg.eval_every`` epochs and checkpoints
+    under ``out/ckpt``, the final renders and the weights (with their
+    config) at ``out/weights`` -> (TrainResult, seconds the corpus took)."""
+    from ..cli import TEST_STRINGS
+    from ..render import render_strings
+    from ..train import train
+    from ..utils.checkpoint import save_params
+
+    t0 = time.time()
+    ds = sheet_dataset(font_path, mcfg, samples, device)
+    data_s = time.time() - t0
+    print(f"[{name}] dataset resident in {data_s:.1f}s", flush=True)
+    r = train(ds, mcfg, tcfg, output_dir=out, eval_strings=TEST_STRINGS, checkpoint_dir=f"{out}/ckpt", resume=resume)
+    render_strings(r.params, TEST_STRINGS, out, mcfg)
+    save_params(r.params, f"{out}/{weights}", mcfg)
+    return r, data_s

@@ -12,6 +12,8 @@ of 4 strings must come back byte-equal to a direct render of them.
 ``--int8`` serves the int8 x int8 projection (``serve --int8``);
 ``--format`` takes a comma-separated list, each format timed on the one
 server. One JSON line a format, with the JAX tool's keys.
+``AFR_BENCH_DUMP_AFTER=<seconds>`` dumps every thread's stack to stderr
+after that long and exits, as in the JAX tool.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from ..cli import arm_dump_after
 from ..config import ModelConfig
 from ..models import font_renderer
 from ..ops.quantized import quantize_params
@@ -62,6 +65,7 @@ def _weights(mcfg: ModelConfig, device):
 
 
 def main(argv: list[str] | None = None, mcfg: ModelConfig = ModelConfig()) -> list[dict]:
+    arm_dump_after("AFR_BENCH_DUMP_AFTER")  # a watchdog for deadlocks of the serve path under load
     rest, dev, kernels = _common.start(sys.argv[1:] if argv is None else argv)
     fmts, rest = _formats(rest)
     int8 = "--int8" in rest

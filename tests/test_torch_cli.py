@@ -142,7 +142,9 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    banned = ("jax", "jaxlib", "ai_font_renderer_tpu")
+    """Nor anything of the root tools/ package, the JAX tools, which
+    import the JAX package (tools/ab_fa2.py imports tools.ab_fused_attention)."""
+    banned = ("jax", "jaxlib", "ai_font_renderer_tpu", "tools")
     found = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -156,7 +158,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 if name.split(".")[0] in banned:
                     found.append(f"{path.relative_to(ROOT)}:{node.lineno} imports {name}")
     assert len(_port_sources()) > 10
-    for rel in ("utils/export.py", "tools/run_exported_standalone.py"):
+    for rel in ("utils/export.py", "tools/run_exported_standalone.py", "tools/ab_fa2.py", "tools/round4_task5.py"):
         assert ROOT / "ai_font_renderer_tpu_torch" / rel in _port_sources(), rel
     assert not found, found
 
@@ -172,7 +174,7 @@ def test_port_modules_load_without_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ai_font_renderer_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ai_font_renderer_tpu', 'tools')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
