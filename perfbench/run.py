@@ -1,0 +1,18 @@
+"""Run one cell of the benchmark once (see perfbench/harness.py):
+
+    python3 perfbench/run.py --workload flagship.train_corpus --seed 7 --seconds 10 --trace 0
+"""
+
+import time
+
+T0 = time.perf_counter()
+
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from perfbench import harness  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(harness.main(sys.argv[1:], T0))
