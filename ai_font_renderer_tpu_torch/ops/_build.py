@@ -100,16 +100,21 @@ def build(names=SOURCES) -> dict[str, str]:
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library for csrc/{name}.cu, built first if needed.
     ``signatures`` maps each C entry point to its (argtypes, restype),
-    declared once when the library is loaded."""
+    declared once when the library is loaded. The build and load are the
+    span ``ops.load.<name>`` (utils/profiling.py)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn_name, (argtypes, restype) in signatures.items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = restype
+            # Imported here: utils/ imports models/, which imports ops/.
+            from ..utils.profiling import span
+
+            with span(f"ops.load.{name}"):
+                build((name,))
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                for fn_name, (argtypes, restype) in signatures.items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
             _libs[name] = lib
         return lib
 

@@ -8,7 +8,12 @@ device's kernel events (categories ``kernel``, ``gpu_memcpy`` and
 ``gpu_memset``, every CUDA stream of a device) give the busy time as the
 union of their intervals, the idle time as the span less that, both also
 per step, the kernels that took the most time, and the longest idle gaps,
-each with the innermost host operation open across it. It then measures
+each with the innermost host operation or program span (utils/profiling.py
+``span``, a ``user_annotation``) open across it; ``phase_device_ms`` gives
+the median device time of each span of the traced steps (``train.forward``,
+``train.backward``, ...) and ``first_calls`` the host seconds of each span
+name's first call in the process (the first ``train.step`` and its phases,
+each ``ops.load.<lib>``: where set-up time goes). It then measures
 the wall per step again with the trace off, at the microbench length and
 at the production epoch length (20 against 117 steps).
 
@@ -26,20 +31,21 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import sys
 import time
 
 import torch
 
 from ..train.step import train_epoch
-from ..utils.profiling import OPENING_NAME, trace, trace_events
+from ..utils.profiling import OPENING_NAME, spans, spans_dropped, trace, trace_events
 from . import _common
 from .ab_profiles import configs, fresh_state, random_corpus
 
 STEPS = 20
 LONG_STEPS = 117  # the production epoch length (bench.py's train section)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-HOST_CATS = ("cpu_op",)
+HOST_CATS = ("cpu_op", "user_annotation")
 
 
 def run_profile(name: str, kernels: str = "none", device=None, widths: dict | None = None, batch: int | None = None,
@@ -59,11 +65,13 @@ def run_profile(name: str, kernels: str = "none", device=None, widths: dict | No
 
     tag = name + ("" if kernels == "none" else "_" + kernels.replace(",", "+"))
     logdir = os.path.join(log_root, f"torch_trace_{tag}")
+    first = len(spans())
     with trace(logdir):
         t0 = time.perf_counter()
         st, tl = epoch(st, steps, 1)
         float(tl)
         wall = time.perf_counter() - t0  # the steps under the profiler, not its writing of the trace
+    phases = phase_device_ms(spans()[first:])
 
     # The wall per step with the trace off, at both epoch lengths: the
     # epoch's fetch of its loss divides by the step count.
@@ -82,8 +90,42 @@ def run_profile(name: str, kernels: str = "none", device=None, widths: dict | No
         "logdir": logdir,
         "wall_ms_per_step_traced": 1e3 * wall / steps,
         "wall_ms_per_step": {f"steps={k}": v for k, v in walls.items()},
+        "phase_device_ms": phases,
+        "first_calls": first_calls(spans()),
         **summarize_trace(logdir, steps),
     }
+
+
+def phase_device_ms(records: list[dict]) -> dict | None:
+    """{span name: the median of its records' device_ms} over the span
+    records (utils/profiling.py ``spans``) that have one: none on the CPU.
+    None where spans were dropped at the cap: the medians would miss them."""
+    if spans_dropped():
+        return None
+    by_name: dict = {}
+    for r in records:
+        if r["device_ms"] is not None:
+            by_name.setdefault(r["name"], []).append(r["device_ms"])
+    return {name: statistics.median(v) for name, v in sorted(by_name.items())}
+
+
+def first_calls(records: list[dict]) -> list[dict]:
+    """The first record of each span name, oldest first: {"name", "parent"
+    (the enclosing span's name, or None), "host_s" (None while open)}. A
+    name's first call is recorded with spans off too, so these are the
+    process's first steps and library loads, traced or not."""
+    seen: set = set()
+    out = []
+    for r in records:
+        if r["name"] in seen:
+            continue
+        seen.add(r["name"])
+        out.append({
+            "name": r["name"],
+            "parent": None if r["parent"] is None else records[r["parent"]]["name"],
+            "host_s": None if r["end_ns"] is None else (r["end_ns"] - r["start_ns"]) / 1e9,
+        })
+    return out
 
 
 def _union_ms(intervals: list[tuple[float, float]]) -> tuple[float, float]:
@@ -106,7 +148,7 @@ def _union_ms(intervals: list[tuple[float, float]]) -> tuple[float, float]:
 def idle_gaps(intervals: list[tuple[float, float]], host: list[tuple[float, float, str]], top: int = 5) -> list:
     """The ``top`` longest gaps between the union of device ``intervals``
     (us), longest first: {"ms", "at_ms" (from the first kernel's start),
-    "host_op" (the shortest host operation (start, end, name) open across
+    "host_op" (the shortest host operation or span (start, end, name) open across
     the whole gap, or None: the host was between operations),
     "host_op_most_overlap" (the one that overlaps the gap most)}."""
     merged = []

@@ -31,6 +31,11 @@ Steps:
   written-out projection, then K4 (ops/fused_dw_adamw.py) sums out_w's
   gradient and applies its AdamW update in one pass. With
   ``use_pallas_output`` the forward product is K1 and dX is K2.
+
+Every step emits the same spans (utils/profiling.py): ``train.forward``,
+``train.backward`` and ``train.update``, inside ``train_epoch``'s
+``train.epoch``, ``train.step`` and ``train.gather``. In the fused step
+``train.update`` holds K4, which forms out_w's gradient in the same pass.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from ..device import resolve_device
 from ..models import font_renderer
 from ..ops.fused_dw_adamw import fused_dw_adamw
 from ..ops.fused_output import _k1, _k2, clamp_mask
+from ..utils.profiling import span
 from .optim import EPS, adam_
 
 
@@ -190,14 +196,16 @@ def _standard_grads(state: TrainState, codes, targets, generator, mcfg, tcfg, me
     sums every shard's squares (``mesh.model_sum``)."""
     params = state.params
     keys = list(params)
-    if not _column_parallel(params, mesh):
-        loss = loss_fn(params, codes, targets, mcfg, generator)
-    else:
-        flat = font_renderer.frontend(params, codes, mcfg, train=True, generator=generator)
-        out = font_renderer.project(params, mesh.model_input(flat), mcfg, train=True)
-        d = out - mesh.columns(targets.reshape(targets.shape[0], -1)).float()
-        loss = mesh.model_sum((d * d).sum()) / (d.numel() * mesh.model)
-    grads = torch.autograd.grad(loss, [params[k] for k in keys])
+    with span("train.forward"):
+        if not _column_parallel(params, mesh):
+            loss = loss_fn(params, codes, targets, mcfg, generator)
+        else:
+            flat = font_renderer.frontend(params, codes, mcfg, train=True, generator=generator)
+            out = font_renderer.project(params, mesh.model_input(flat), mcfg, train=True)
+            d = out - mesh.columns(targets.reshape(targets.shape[0], -1)).float()
+            loss = mesh.model_sum((d * d).sum()) / (d.numel() * mesh.model)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
     return loss.detach(), dict(zip(keys, grads))
 
 
@@ -205,10 +213,11 @@ def _update(state, grads: dict, lr, tcfg: TrainConfig) -> None:
     """AdamW on every parameter of ``grads``, in place; counts the step."""
     keys = list(grads)
     state.count += 1
-    adamw_(
-        [state.params[k] for k in keys], [grads[k] for k in keys], [state.mu[k] for k in keys],
-        [state.nu[k] for k in keys], lr, tcfg, state.count,
-    )
+    with span("train.update"):
+        adamw_(
+            [state.params[k] for k in keys], [grads[k] for k in keys], [state.mu[k] for k in keys],
+            [state.nu[k] for k in keys], lr, tcfg, state.count,
+        )
 
 
 def _save_products(ctx, op, *args, **kwargs):
@@ -304,16 +313,19 @@ def _handrolled_grads(state: TrainState, codes, targets, generator, mcfg, tcfg, 
         )
     params = state.params
     rest = {k: v for k, v in params.items() if k not in ("out_w", "out_b")}
-    flat = _frontend(rest, codes, mcfg, generator, tcfg.remat_frontend)
     shard = mesh if _column_parallel(params, mesh) else None
-    with torch.no_grad():
-        w = params["out_w"]
-        loss, out, g, gm, flat_dt = _projection(flat.detach(), params, targets, mcfg, shard)
-        dflat, gm_dt = _dflat(out, g, gm, w, mcfg)
-        if shard is not None:
-            dflat = shard.model_sum(dflat)
-        grads = {"out_b": gm.sum(0), "out_w": flat_dt.float().T @ gm_dt.float()}
-    grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
+    w = params["out_w"]
+    with span("train.forward"):
+        flat = _frontend(rest, codes, mcfg, generator, tcfg.remat_frontend)
+        with torch.no_grad():
+            loss, out, g, gm, flat_dt = _projection(flat.detach(), params, targets, mcfg, shard)
+    with span("train.backward"):
+        with torch.no_grad():
+            dflat, gm_dt = _dflat(out, g, gm, w, mcfg)
+            if shard is not None:
+                dflat = shard.model_sum(dflat)
+            grads = {"out_b": gm.sum(0), "out_w": flat_dt.float().T @ gm_dt.float()}
+        grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
     return loss, {k: grads[k] for k in params}
 
 
@@ -326,24 +338,30 @@ def _fused_step(state: FusedTrainState, codes, targets, lr, generator, mcfg, tcf
     _check_fused(mcfg)
     params = state.params
     rest = {k: v for k, v in params.items() if k not in ("out_w", "out_b")}
-    flat = _frontend(rest, codes, mcfg, generator)
     w = params["out_w"]
-    with torch.no_grad():
-        loss, out, g, gm, flat_dt = _projection(flat.detach(), params, targets, mcfg)
-        dflat, gm_dt = _dflat(out, g, gm, w, mcfg)
-        grads = {"out_b": gm.sum(0)}
-    grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
+    with span("train.forward"):
+        flat = _frontend(rest, codes, mcfg, generator)
+        with torch.no_grad():
+            loss, out, g, gm, flat_dt = _projection(flat.detach(), params, targets, mcfg)
+    with span("train.backward"):
+        with torch.no_grad():
+            dflat, gm_dt = _dflat(out, g, gm, w, mcfg)
+            grads = {"out_b": gm.sum(0)}
+        grads.update(zip(rest, torch.autograd.grad(flat, list(rest.values()), dflat)))
     keys = [k for k in params if k != "out_w"]
     state.count += 1
-    adamw_(
-        [params[k] for k in keys], [grads[k] for k in keys], [state.mu[k] for k in keys],
-        [state.nu[k] for k in keys], lr, tcfg, state.count,
-    )
-    with torch.no_grad():
-        fused_dw_adamw(
-            flat_dt, gm_dt, w, state.mu_w, state.nu_w, lr, tcfg.weight_decay,
-            tcfg.adam_b1, tcfg.adam_b2, state.count, EPS,
+    # K4 forms out_w's gradient and applies its update in one pass, so this
+    # span holds that dW product too.
+    with span("train.update"):
+        adamw_(
+            [params[k] for k in keys], [grads[k] for k in keys], [state.mu[k] for k in keys],
+            [state.nu[k] for k in keys], lr, tcfg, state.count,
         )
+        with torch.no_grad():
+            fused_dw_adamw(
+                flat_dt, gm_dt, w, state.mu_w, state.nu_w, lr, tcfg.weight_decay,
+                tcfg.adam_b1, tcfg.adam_b2, state.count, EPS,
+            )
     return state, loss
 
 
@@ -379,11 +397,14 @@ def train_epoch(state, dataset, batch_idx: torch.Tensor, lr: float, generator, m
     dataset's device; on a mesh, this rank's columns of them) -> (state,
     mean train loss as a device scalar)."""
     losses = []
-    for idx in batch_idx:
-        codes, targets = dataset.gather_batch(idx)
-        state, loss = train_step(state, codes, targets, lr, generator, mcfg, tcfg, mesh)
-        losses.append(loss)
-    return state, torch.stack(losses).mean()
+    with span("train.epoch"):
+        for idx in batch_idx:
+            with span("train.step"):
+                with span("train.gather"):
+                    codes, targets = dataset.gather_batch(idx)
+                state, loss = train_step(state, codes, targets, lr, generator, mcfg, tcfg, mesh)
+            losses.append(loss)
+        return state, torch.stack(losses).mean()
 
 
 @torch.no_grad()

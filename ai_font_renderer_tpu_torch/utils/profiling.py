@@ -1,12 +1,14 @@
-"""Profiling helpers: torch.profiler traces, timers that wait for the device,
-per-device memory statistics, and the check that a trace holds every
-launch of the port's kernels.
+"""Profiling helpers: torch.profiler traces, program spans, timers that wait
+for the device, per-device memory statistics, and the check that a trace
+holds every launch of the port's kernels.
 
 The port of ai_font_renderer_tpu/utils/profiling.py. ``trace`` writes a
 Chrome trace (``*.pt.trace.json``) that chrome://tracing, Perfetto and
 tools/trace_step.py read. ``timed`` waits for the device with
 ``torch.cuda.synchronize()`` (CUDA calls return before the device is done,
-so a clock that stops without it measures the enqueue).
+so a clock that stops without it measures the enqueue). ``span`` marks a
+phase of the program: in a trace it is a ``user_annotation`` on the device
+records' clock, and ``spans`` gives its host and device times.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import gzip
 import json
 import os
 import re
+import threading
 import time
 
 import torch
@@ -79,6 +82,134 @@ def trace(log_dir: str | None = None):
     finally:
         _sync()
         prof.stop()
+
+
+# The program's spans (``span``). At most MAX_SPANS records are kept; the
+# rest are counted (``spans_dropped``).
+MAX_SPANS = 65_536
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class _Spans:
+    """The process's span records, each [name, parent, start_ns, end_ns,
+    start event, end event, device_ms]; ``parent`` indexes the record of
+    the span that was open around it on the same thread."""
+
+    def __init__(self, cap: int = MAX_SPANS):
+        self.cap = cap
+        self.records: list = []
+        self.seen: set = set()  # names that have had their first call
+        self.dropped = 0
+        self.lock = threading.Lock()
+        self.local = threading.local()  # .stack: open records' indices (None: dropped)
+
+
+_SPANS = _Spans()
+
+
+class _Off:
+    """What ``span`` returns when it records nothing: one shared object."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("spans", "name", "fn", "rec")
+
+    def __init__(self, spans: _Spans, name: str):
+        self.spans, self.name, self.fn, self.rec = spans, name, None, None
+
+    def __enter__(self):
+        s = self.spans
+        on = _profiler_enabled()
+        if on:
+            self.fn = torch.profiler.record_function(self.name)
+            self.fn.__enter__()
+        stack = s.local.__dict__.setdefault("stack", [])
+        with s.lock:
+            s.seen.add(self.name)
+            index = None
+            if len(s.records) < s.cap:
+                index = len(s.records)
+                self.rec = [self.name, stack[-1] if stack else None, 0, None, None, None, None]
+                s.records.append(self.rec)
+            else:
+                s.dropped += 1
+        stack.append(index)
+        if self.rec is not None:
+            if on and torch.cuda.is_initialized():
+                self.rec[4] = torch.cuda.Event(enable_timing=True)
+                self.rec[4].record()
+            self.rec[2] = time.perf_counter_ns()
+        return None
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec is not None:
+            rec[3] = time.perf_counter_ns()
+            if rec[4] is not None:
+                rec[5] = torch.cuda.Event(enable_timing=True)
+                rec[5].record()
+        self.spans.local.stack.pop()
+        if self.fn is not None:
+            self.fn.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A span around a phase of the program: ``with span("train.forward"):``.
+
+    Off (no torch profiler window open: ``trace``, or any other), it costs
+    a set lookup and a flag test, and records nothing, but for the first
+    call of each name in the process, which is recorded with host times
+    only: that is where set-up time goes. On, it opens
+    ``torch.profiler.record_function(name)`` (a ``user_annotation`` in the
+    Chrome trace, on the device records' clock) and keeps a record: the
+    enclosing span, host ``perf_counter_ns`` at both edges and, once CUDA
+    is initialized, a timing event on the current stream at each edge.
+    Autograd's backward runs on a thread of its own but on the caller's
+    stream, so a span around ``autograd.grad`` covers its kernels in stream
+    order. A span never changes what the code inside it computes.
+    """
+    s = _SPANS
+    if name in s.seen and not _profiler_enabled():
+        return _OFF
+    return _Span(s, name)
+
+
+def spans() -> list[dict]:
+    """The span records, oldest first, each {"name", "parent" (the index
+    of the enclosing span's record, or None), "start_ns", "end_ns" (host
+    ``perf_counter_ns``; None while open), "device_ms" (the device's time
+    between the span's edges, idle time inside included; None without
+    events)}. Waits for each span's end event; the records stay, for the
+    next reader."""
+    s = _SPANS
+    with s.lock:
+        records = list(s.records)
+    out = []
+    for r in records:
+        if r[5] is not None:
+            r[5].synchronize()
+            r[6] = r[4].elapsed_time(r[5])
+            r[4] = r[5] = None
+        out.append({"name": r[0], "parent": r[1], "start_ns": r[2], "end_ns": r[3], "device_ms": r[6]})
+    return out
+
+
+def spans_dropped() -> int:
+    """Spans that were on but did not fit in the MAX_SPANS records: while
+    it is above 0, ``spans`` is not the whole of them."""
+    return _SPANS.dropped
 
 
 def timed(fn, *args, iters: int = 10, warmup: int = 2) -> float:

@@ -111,7 +111,8 @@ def _synthetic_trace() -> dict:
     must not count, then kernels at [0, 100), [50, 150) (overlapping), [400,
     500) on stream 7, a memset at [600, 610) on stream 8 and a memcpy at
     [700, 750); a user annotation spanning all that must not count either. Host: an op
-    open across the gap [150, 400), another inside the gap [500, 600)."""
+    open across the gap [150, 400), another inside the gap [500, 600), and
+    the user annotation, a span open across every gap."""
     meta = [
         {"name": "process_name", "ph": "M", "pid": 118, "tid": 0, "args": {"name": "python3"}},
         {"name": "process_labels", "ph": "M", "pid": 118, "tid": 0, "args": {"labels": "CPU"}},
@@ -164,9 +165,10 @@ def test_summarize_trace_on_a_synthetic_trace(tmp_path, suffix):
     assert [round(g["ms"], 9) for g in gaps] == [0.25, 0.1, 0.09]
     assert [round(g["at_ms"], 9) for g in gaps] == [0.15, 0.5, 0.61]
     assert gaps[0]["host_op"] == "aten::inner"  # the shortest op open across [1150, 1400)
-    assert gaps[1]["host_op"] is None  # nothing spans [1500, 1600)
-    assert gaps[1]["host_op_most_overlap"] == "aten::brief"
-    assert gaps[2]["host_op"] is None and gaps[2]["host_op_most_overlap"] is None
+    # No op spans [1500, 1600) or [1610, 1700): the annotation names them.
+    assert gaps[1]["host_op"] == "ProfilerStep#1"
+    assert gaps[1]["host_op_most_overlap"] == "ProfilerStep#1"  # 100 us against aten::brief's 30
+    assert gaps[2]["host_op"] == "ProfilerStep#1" and gaps[2]["host_op_most_overlap"] == "ProfilerStep#1"
 
 
 def test_summarize_trace_without_a_trace(tmp_path):
