@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version; and ``quantized``, int8 serving on cuBLASLt's int8 product, which
-the JAX package computes with XLA rather than a Pallas kernel.
+version (among them ``gather_rows``, the embedding gathers' backward, which
+replaces XLA's scatter-add rather than a Pallas kernel); and ``quantized``,
+int8 serving on cuBLASLt's int8 product, which the JAX package computes
+with XLA rather than a Pallas kernel.
 
 Importing this package registers the ``torch.library`` operators that an
 exported program's graph calls (``afr::fused_output_fwd``,
@@ -49,6 +51,12 @@ from .fused_output import (
     round_bf16,
     round_bf16_reference,
 )
+from .gather_rows import (
+    gather_rows_attributes,
+    gather_rows_backward,
+    gather_rows_backward_reference,
+    gather_rows_plan,
+)
 from .quantized import int8_product
 
 __all__ = [
@@ -80,6 +88,10 @@ __all__ = [
     "fused_output_dx_reference",
     "fused_output_fwd",
     "fused_output_reference",
+    "gather_rows_attributes",
+    "gather_rows_backward",
+    "gather_rows_backward_reference",
+    "gather_rows_plan",
     "gemm_bf16_bias_clamp",
     "gemm_bf16_bias_clamp_reference",
     "gemm_bf16_mn",

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_output", "fused_attention", "attention_mma", "attention_wide", "fused_dw_adamw")
+SOURCES = ("fused_output", "fused_attention", "attention_mma", "attention_wide", "fused_dw_adamw", "gather_rows")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

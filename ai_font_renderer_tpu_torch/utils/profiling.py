@@ -28,7 +28,9 @@ import torch
 # names it (a pattern searched in the kernel's demangled name). The f32
 # attention kernels have no wrapper of their own: the entry points count
 # them, together with the launches they hand to the tensor-core and general
-# kernels (``launch_counts``).
+# kernels (``launch_counts``). ``ops.gather_rows_backward`` counts the
+# gathers' backward on f32 tables (``gather_rows_bwd``) and on bf16 tables
+# (``gather_rows_bwd_ordered``) on counters of their own.
 KERNEL_NAMES = {
     "round_bf16": r"round_bf16_kernel",
     "gemm_bf16_tn": r"gemm_bf16_tn_kernel",
@@ -42,7 +44,12 @@ KERNEL_NAMES = {
     "attention_wide_bwd": r"\bwide_bwd\b",
     "attention_f32_fwd": r"attention_f32_fwd",
     "attention_f32_bwd": r"attention_f32_bwd",
+    "gather_rows_bwd": r"gather_rows_bwd_(partial|sum)\b",
+    "gather_rows_bwd_ordered": r"gather_rows_bwd_ordered\b",
 }
+# Kernels one counted call launches, where that is more than one: the
+# gathers' backward on an f32 table is two passes (ops/gather_rows.py).
+KERNELS_PER_CALL = {"gather_rows_bwd": 2}
 
 
 # Spin kernels a trace launches and waits for as it opens. In a long
@@ -250,6 +257,8 @@ def launch_counts() -> dict:
                           ("bwd", ("fused_attention_backward", "fused_attention2_backward"))):
         counts[f"attention_f32_{side}"] = (sum(getattr(ops, e).launches for e in entries)
                                            - counts[f"attention_mma_{side}"] - counts[f"attention_wide_{side}"])
+    counts["gather_rows_bwd"] = ops.gather_rows_backward.launches
+    counts["gather_rows_bwd_ordered"] = ops.gather_rows_backward.ordered_launches
     return counts
 
 
@@ -286,11 +295,11 @@ def profiled_launches(names: list[str]) -> dict:
 def check_launches(names: list[str], before: dict, after: dict) -> dict:
     """Raise unless the kernels ``names`` of a trace hold each port kernel
     as many times as its counter rose from ``before`` to ``after``
-    (``launch_counts``); returns {kernel: launches} of the kernels that
-    ran."""
+    (``launch_counts``), times its :data:`KERNELS_PER_CALL`; returns
+    {kernel: calls counted} of the kernels that ran."""
     seen = profiled_launches(names)
     rose = {k: after[k] - before[k] for k in after}
-    wrong = {k: (rose[k], seen[k]) for k in rose if rose[k] != seen[k]}
+    wrong = {k: (rose[k], seen[k]) for k in rose if rose[k] * KERNELS_PER_CALL.get(k, 1) != seen[k]}
     if wrong:
         raise AssertionError(f"the trace lost or added launches, {{kernel: (counted, traced)}}: {wrong}")
     return {k: v for k, v in rose.items() if v}

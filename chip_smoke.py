@@ -1229,14 +1229,16 @@ def _kernel_fns():
         "attention_wide_fwd": ops.attention_wide_fwd,
         "attention_wide_bwd": ops.attention_wide_bwd,
         "fused_dw_adamw_xt": ops.fused_dw_adamw_xt,
+        "gather_rows_backward": ops.gather_rows_backward,
     }
 
 
 def _reset_counts():
-    from ai_font_renderer_tpu_torch.ops import bf16_shadow
+    from ai_font_renderer_tpu_torch.ops import bf16_shadow, gather_rows_backward
 
     for fn in _kernel_fns().values():
         fn.launches = 0
+    gather_rows_backward.ordered_launches = 0
     bf16_shadow.builds = 0
 
 
@@ -3445,26 +3447,37 @@ def _implicit_trainers(card: str) -> dict:
     return rates
 
 
-def _embedding_backward_forms(card: str) -> dict:
+def _embedding_backward_forms(card: str) -> list[dict]:
     """10d: the embedding gathers' backward on the card at batch 1024,
     S 100, a 128-row table, the codes of 1024 corpus strings (a few rows,
-    the space first, take most of them), in two forms: the index form that
-    models/gather.py takes on the card (index_put_ with accumulation) and
-    F.embedding, which it takes on the CPU. Device ms of the gather's
-    forward and backward, and whether three runs give the same bits; the
-    card's form must."""
+    the padding first, take most of them), at the flagship's E 32 in f32
+    and in bf16 (its bf16 frontend), hc307m's E 64 bf16 and the placement
+    net's E 64 f32, in three forms:
+    the kernels of csrc/gather_rows.cu that models/gather.py takes on the
+    card, the index form that it took before (index_put_ with
+    accumulation) and F.embedding, which it takes on the CPU. Device ms of
+    the gather's forward and backward and whether three runs give the same
+    bits (the card's form must); then the backward alone: the kernels (with
+    their plan) against their byte bound, their plain version (which they
+    must equal bit for bit; in bf16 the index form's bits too), the index
+    form's index_put_ and F.embedding's backward, and each one's largest
+    distance from the f64 sum. Returns the kernels' rows."""
     from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
     from ai_font_renderer_tpu_torch.fontgen.textgen import generate_corpus
     from ai_font_renderer_tpu_torch.models.gather import gather_rows
+    from ai_font_renderer_tpu_torch.ops import gather_rows_backward, gather_rows_backward_reference, gather_rows_plan
+    from ai_font_renderer_tpu_torch.utils.profiling import timed
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     codes = torch.from_numpy(encode_codes(generate_corpus(1024, base_seed=15), 100)).long().cuda()
-    rows = {}
+    flat = codes.reshape(-1)
+    rows, kernel_rows = {}, []
     for tag, e, dt in (("flagship E32 f32", 32, torch.float32), ("flagship E32 bf16", 32, torch.bfloat16),
-                       ("placement E64 f32", 64, torch.float32)):
+                       ("hc307m E64 bf16", 64, torch.bfloat16), ("placement E64 f32", 64, torch.float32)):
         table = torch.randn(128, e, generator=gen, device="cuda").requires_grad_()
         cot = torch.randn(1024, 100, e, generator=gen, device="cuda").to(dt)
-        for form, gather in (("index, the card's", lambda t, dt=dt: gather_rows(t.to(dt), codes)),
+        for form, gather in (("kernels, the card's", lambda t, dt=dt: gather_rows(t.to(dt), codes)),
+                             ("index form", lambda t, dt=dt: t.to(dt)[codes]),
                              ("F.embedding", lambda t, dt=dt: torch.nn.functional.embedding(codes, t.to(dt)))):
             def run(gather=gather, cot=cot, table=table):
                 return torch.autograd.grad(gather(table), table, cot)[0]
@@ -3472,18 +3485,48 @@ def _embedding_backward_forms(card: str) -> dict:
             grads = [run() for _ in range(3)]
             rows[f"{tag}, {form}"] = {"ms": time_ms(run, 20),
                                       "deterministic": all(torch.equal(grads[0], g) for g in grads[1:])}
+        exact = torch.zeros(128, e, dtype=torch.float64, device="cuda").index_add_(
+            0, flat, cot.reshape(-1, e).double())
+        got = gather_rows_backward(codes, cot, 128, dt)
+        plain = gather_rows_backward_reference(codes, cot, 128, dt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"{tag}: the gather kernels differ from their plain version by "
+                                 f"{float((got.float() - plain.float()).abs().max())}")
+        index = torch.zeros(128, e, dtype=dt, device="cuda").index_put_((codes,), cot, accumulate=True)
+        if dt == torch.bfloat16 and not torch.equal(got, index):
+            raise AssertionError(f"{tag}: the bf16 kernel differs from the index form's bits")
+        library = torch.ops.aten.embedding_dense_backward(cot, codes, 128, -1, False)
+        bound_ms, bound_by = _bound(cot.numel() * cot.element_size() + 8 * codes.numel() + 128 * e * cot.element_size(),
+                                    codes.numel() * e, F32_CUDA_CORE_FLOPS)
+        kernel_rows.append({
+            "shape": f"B=1024,S=100,V=128,E={e},{str(dt).split('.')[-1]}",
+            "max_abs_err": float((got.float() - plain.float()).abs().max()),
+            "ms": time_ms(lambda: gather_rows_backward(codes, cot, 128, dt), 50),
+            # The plain version syncs inside, which time_ms cannot queue: host clock.
+            "plain_ms": 1e3 * timed(gather_rows_backward_reference, codes, cot, 128, dt, iters=1, warmup=0),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": time_ms(lambda: torch.ops.aten.embedding_dense_backward(cot, codes, 128, -1, False), 50),
+            "index_form_ms": time_ms(
+                lambda: torch.zeros(128, e, dtype=dt, device="cuda").index_put_((codes,), cot, accumulate=True), 5),
+            "f64_err": {name: float((v.double() - exact).abs().max())
+                        for name, v in (("kernels", got), ("index_form", index), ("library", library))},
+            "plan": gather_rows_plan(codes.numel(), 128, e, dt),
+        })
     print(f"[placement] embedding gathers' forward + backward at B=1024, S=100 (corpus codes), 128 rows, device ms and "
           f"whether 3 runs give the same bits: {json.dumps(rows)} ({card})", flush=True)
+    print(f"[placement] the gathers' backward alone (gather_rows_bwd): {json.dumps(kernel_rows)} ({card})", flush=True)
     if not all(v["deterministic"] for k, v in rows.items() if "card" in k):
         raise AssertionError(f"the card's gather backward is not deterministic: {rows}")
-    return rows
+    return kernel_rows
 
 
-def phase_placement(workdir: str, card: str) -> tuple[dict, list[dict], list[dict]]:
-    """Phase 10: placement and implicit training -> (the launches of the
-    CLI runs, the general attention's forward and backward rows at the
-    placement net's training shape); then the embedding gathers' backward
-    forms."""
+def phase_placement(workdir: str, card: str) -> tuple[dict, list[dict], list[dict], list[dict]]:
+    """Phase 10: placement and implicit training, then 10d, the embedding
+    gathers' backward forms -> (the launches of the CLI runs, the general
+    attention's forward and backward rows at the placement net's training
+    shape, the gathers' backward kernels' rows)."""
     seconds = {}
     t0 = time.perf_counter()
     counts, rates = _placement_chain(workdir, card)
@@ -3498,11 +3541,11 @@ def phase_placement(workdir: str, card: str) -> tuple[dict, list[dict], list[dic
     fwd_rows, bwd_rows = check_attention_wide(shapes=((100, 64, 8),), dtypes=(torch.float32,), extra=())
     seconds["general_attention"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _embedding_backward_forms(card)
+    gather_rows = _embedding_backward_forms(card)
     seconds["embedding_backward"] = time.perf_counter() - t0
     print(f"[placement] rates {json.dumps({k: round(v, 3) for k, v in rates.items()})} ({card})", flush=True)
     print(f"[placement] seconds by check: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
-    return counts, fwd_rows, bwd_rows
+    return counts, fwd_rows, bwd_rows, gather_rows
 
 
 # -- phase 11: the device mesh --------------------------------------------
@@ -4264,7 +4307,7 @@ def main() -> int:
         del ds
         implicit_counts, implicit_rows = timed("implicit", phase_implicit, workdir, card)
         export_counts = timed("export", phase_export, workdir, card, atlas_gps, serve_latency)
-        placement_counts, placement_fwd_rows, placement_bwd_rows = timed(
+        placement_counts, placement_fwd_rows, placement_bwd_rows, gather_rows = timed(
             "placement", phase_placement, workdir, card)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4380,6 +4423,12 @@ def main() -> int:
             "fused_dw_adamw_xt (K9)", src + "fused_dw_adamw.cu",
             "tools/ab_kernel_micro.py:91", k9_rows,
             "M=1024,K=6400,N=19200,mu=bf16,xt", launches["fused_dw_adamw_xt"],
+        ),
+        _kernel_entry(
+            "gather_rows_bwd (the embedding gathers' backward: f32 two passes, bf16 the index form's order)",
+            src + "gather_rows.cu",
+            "none: the JAX package's gather VJP is XLA's scatter-add", gather_rows,
+            "B=1024,S=100,V=128,E=32,float32", launches["gather_rows_backward"],
         ),
     ]
     # The int8 product is cuBLASLt's (torch._int_mm): a library call, as the

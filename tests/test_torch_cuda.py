@@ -1045,30 +1045,160 @@ def test_kernel_takes_equals_the_libraries_rules(cuda):
     assert checked == 11 * 7 * 5
 
 
+def _corpus_codes(device):
+    """The codes of 1024 corpus strings, S 100 (about half the padding row)."""
+    from ai_font_renderer_tpu_torch.fontgen.layout import encode_codes
+    from ai_font_renderer_tpu_torch.fontgen.textgen import generate_corpus
+
+    return torch.from_numpy(encode_codes(generate_corpus(1024, base_seed=15), 100)).long().to(device)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_gather_rows_backward_is_deterministic_on_the_card(cuda, dtype):
     """The embedding gathers' backward on the card (models/gather.py, the
-    index form's sorted reduction) gives the same bits in three runs at the
-    flagship's training batch (B 1024, S 100), for the placement net's
-    E 64 table in the frontend's dtype and the 1-D advance table; in f32
-    the values of F.embedding's backward, to sums in another order."""
+    kernels of csrc/gather_rows.cu) gives the same bits in three runs at the
+    cells' training batch (B 1024, S 100, corpus codes): the flagship's E 32
+    table, hc307m's and the placement net's E 64 table and the 1-D advance
+    table, each in the frontend's dtype; each run launches the kernels once
+    and equals their plain version bit for bit; in f32 the values of
+    F.embedding's backward, to sums in another order; in bf16 at E 32 and
+    E 64 the index form's bits."""
     from ai_font_renderer_tpu_torch.models.gather import gather_rows
+    from ai_font_renderer_tpu_torch.ops import gather_rows_backward, gather_rows_backward_reference
 
     gen = torch.Generator(device=cuda).manual_seed(3)
-    codes = torch.randint(0, 128, (1024, 100), generator=gen, device=cuda)
-    for shape in ((128, 64), (128,)):
+    codes = _corpus_codes(cuda)
+    for shape in ((128, 32), (128, 64), (128,)):
         table = torch.randn(shape, generator=gen, device=cuda)
         cot = torch.randn(codes.shape + shape[1:], generator=gen, device=cuda).to(dtype)
         runs = []
+        counter = "launches" if dtype == torch.float32 else "ordered_launches"
+        before = getattr(gather_rows_backward, counter)
         for _ in range(3):
             t = table.clone().requires_grad_()
             gather_rows(t.to(dtype), codes).backward(cot)
             runs.append(t.grad)
+        assert getattr(gather_rows_backward, counter) == before + 3
         assert all(torch.equal(runs[0], r) for r in runs[1:])
+        want = gather_rows_backward_reference(codes, cot.reshape(codes.shape + (-1,)), 128, dtype)
+        assert torch.equal(runs[0].reshape(128, -1), want.float())
+        t = table.clone().requires_grad_()
         if dtype == torch.float32:
-            t = table.clone().requires_grad_()
             torch.nn.functional.embedding(codes, t.reshape(128, -1)).backward(cot.reshape(1024, 100, -1))
             torch.testing.assert_close(runs[0].reshape(128, -1), t.grad.reshape(128, -1), atol=1e-3, rtol=1e-4)
+        elif len(shape) == 2:  # PyTorch's index kernels: at E 64 rounded at every add, at E 32 once
+            t.to(dtype)[codes].backward(cot)
+            assert torch.equal(runs[0], t.grad)
+
+
+@pytest.mark.parametrize("n, num_rows, width, dtype, codes_of", [
+    (102_400, 128, 32, torch.float32, "corpus"),
+    (102_400, 128, 64, torch.bfloat16, "corpus"),
+    (102_400, 128, 64, torch.float32, "one row"),
+    (101_376, 16_384, 1, torch.float32, "pairs"),
+    (1024, 95, 64, torch.float32, "uniform"),
+    (3001, 11, 3, torch.float32, "uniform"),
+    (2500, 300, 1, torch.bfloat16, "uniform"),
+    (777, 5, 48, torch.bfloat16, "uniform"),
+    (4097, 4000, 256, torch.float32, "uniform"),
+    (4097, 4000, 256, torch.bfloat16, "uniform"),
+    (50_001, 128, 24, torch.float32, "misaligned"),
+    (50_001, 128, 64, torch.bfloat16, "misaligned"),
+    (0, 128, 32, torch.float32, "uniform"),
+    (0, 128, 64, torch.bfloat16, "uniform"),
+], ids=["E32-corpus", "E64-bf16-corpus", "E64-one-row", "kern-pairs", "siren-batch", "E3", "E1-bf16",
+        "E48-bf16", "E256-tiled", "E256-bf16", "E24-misaligned", "E64-bf16-misaligned", "empty", "empty-bf16"])
+def test_gather_rows_kernel_equals_its_plain_version_bit_for_bit(cuda, n, num_rows, width, dtype, codes_of):
+    """The kernels against the plain version (ops/gather_rows.py, the same
+    order of sums) at the cells' shapes and at shapes that take groups of
+    lanes, tiles of the table, a ragged end, odd widths and a cotangent
+    that starts off a 16-byte boundary: the same bits, one counted call
+    each (an ordered one for bf16)."""
+    from ai_font_renderer_tpu_torch.ops import gather_rows_backward, gather_rows_backward_reference
+
+    gen = torch.Generator(device=cuda).manual_seed(n + width)
+    if codes_of == "corpus":
+        codes = _corpus_codes(cuda).reshape(-1)
+    elif codes_of == "pairs":
+        c = _corpus_codes(cuda)
+        codes = (c[:, :-1] * 128 + c[:, 1:]).reshape(-1)
+    elif codes_of == "one row":
+        codes = torch.full((n,), 77, device=cuda)
+    else:
+        codes = torch.randint(0, num_rows, (n,), generator=gen, device=cuda)
+    assert codes.numel() == n
+    cot = torch.randn(n * width + 1, generator=gen, device=cuda).to(dtype)
+    cot = cot[1:] if codes_of == "misaligned" else cot[:-1]
+    cot = cot.view(n, width)
+    before = gather_rows_backward.launches, gather_rows_backward.ordered_launches
+    got = gather_rows_backward(codes, cot, num_rows, dtype)
+    torch.cuda.synchronize()
+    after = gather_rows_backward.launches, gather_rows_backward.ordered_launches
+    assert after == (before[0] + (dtype == torch.float32), before[1] + (dtype == torch.bfloat16))
+    assert got.shape == (num_rows, width) and got.dtype == dtype
+    assert torch.equal(got, gather_rows_backward_reference(codes, cot, num_rows, dtype))
+
+
+def test_gather_rows_plan_is_the_library_s(cuda):
+    """ops.gather_rows_plan equals csrc/gather_rows.cu's make_plan (f32
+    tables), and the runtime's occupancy calculator holds at least the
+    planned blocks of the first pass on an SM."""
+    from ai_font_renderer_tpu_torch.ops import gather_rows_attributes, gather_rows_plan
+
+    for n, num_rows, width in ((102_400, 128, 32), (102_400, 128, 64), (102_400, 128, 1), (101_376, 16_384, 1),
+                               (1024, 95, 64), (3001, 11, 3), (4097, 4000, 256), (0, 128, 32)):
+        lib = gather_rows_attributes(n, num_rows, width)
+        plan = gather_rows_plan(n, num_rows, width, torch.float32)
+        assert {k: lib[k] for k in plan} == plan
+        assert lib["occupancy"] >= plan["blocks_per_sm"], (n, num_rows, width, lib)
+
+
+def test_gather_rows_bf16_takes_the_index_form_s_arithmetic(cuda):
+    """hc307m's E 64 bf16 table at B 1024, S 100 (corpus codes): the kernel
+    gives the index form's bits (index_put_ with accumulation on the bf16
+    table, whose running sum rounds to bf16 at every add), which the
+    benchmark's reference computes too. Printed beside it: how far that and
+    f32 sums rounded once to bf16 lie from the exact sum."""
+    from ai_font_renderer_tpu_torch.ops import gather_rows_backward
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    codes = _corpus_codes(cuda)
+    cot = torch.randn(1024, 100, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    exact = torch.zeros(128, 64, dtype=torch.float64, device=cuda).index_add_(
+        0, codes.reshape(-1), cot.reshape(-1, 64).double())
+    kernel = gather_rows_backward(codes, cot, 128, torch.bfloat16)
+    index = torch.zeros(128, 64, dtype=torch.bfloat16, device=cuda).index_put_((codes,), cot, accumulate=True)
+    assert torch.equal(kernel, index)
+    once = gather_rows_backward(codes, cot.float(), 128, torch.float32).to(torch.bfloat16)
+    k_err, o_err = (kernel.double() - exact).abs(), (once.double() - exact).abs()
+    print(f"max |err| vs the f64 sum: token-order bf16 sums {float(k_err.max()):.4g} (padding row "
+          f"{float(k_err[0].max()):.4g}), f32 sums rounded once {float(o_err.max()):.4g}")
+    assert float(o_err.max()) < float(k_err.max())
+
+
+def test_gather_rows_trace_holds_both_passes_as_one_call(cuda, tmp_path):
+    """One call on an f32 table is two device kernels in a trace, which
+    utils/profiling.py's KERNEL_NAMES["gather_rows_bwd"] both match, and
+    check_launches counts as the one call that launch_counts() counted; one
+    on a bf16 table is the one kernel of "gather_rows_bwd_ordered"."""
+    from ai_font_renderer_tpu_torch.ops import gather_rows_backward
+    from ai_font_renderer_tpu_torch.utils import profiling
+
+    codes = _corpus_codes(cuda)
+    cot = torch.randn(1024, 100, 32, device=cuda)
+    cot16 = torch.randn(1024, 100, 64, device=cuda).to(torch.bfloat16)
+    gather_rows_backward(codes, cot, 128, torch.float32)
+    gather_rows_backward(codes, cot16, 128, torch.bfloat16)
+    with profiling.trace(str(tmp_path)):
+        before = profiling.launch_counts()
+        gather_rows_backward(codes, cot, 128, torch.float32)
+        gather_rows_backward(codes, cot16, 128, torch.bfloat16)
+        after = profiling.launch_counts()
+    names = [k["name"] for k in profiling.device_kernels(profiling.trace_events(str(tmp_path)))]
+    ours = [name for name in names if "gather_rows" in name]
+    print(f"the trace's kernels of the two calls: {ours}")
+    assert len(ours) == 3
+    assert profiling.check_launches(names, before, after) == {"gather_rows_bwd": 1, "gather_rows_bwd_ordered": 1}
 
 
 # --- the data path on the card ----------------------------------------------

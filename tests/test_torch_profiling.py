@@ -199,7 +199,14 @@ H100_NAMES = {
     "attention_wide_bwd": "void (anonymous namespace)::wide_bwd<float, 1>((anonymous namespace)::OnChipArgs)",
     "attention_f32_fwd": "void (anonymous namespace)::attention_f32_fwd<8, 0>((anonymous namespace)::FwdArgs)",
     "attention_f32_bwd": "void (anonymous namespace)::attention_f32_bwd<8, 1>((anonymous namespace)::BwdArgs)",
+    "gather_rows_bwd": "(anonymous namespace)::gather_rows_bwd_partial((anonymous namespace)::PartialArgs)",
+    "gather_rows_bwd_ordered": "void (anonymous namespace)::gather_rows_bwd_ordered<true>(__nv_bfloat16 const*, "
+                               "long long const*, __nv_bfloat16*, long long, int, int)",
 }
+# The second pass of the gathers' backward on an f32 table: one call
+# launches both.
+GATHER_SUM_NAME = ("(anonymous namespace)::gather_rows_bwd_sum(float const*, float*, long long, long long, int, "
+                   "long long)")
 LIBRARY_NAMES = [
     "void (anonymous namespace)::indexing_backward_kernel_small_stride<float>(long const*, long const*)",
     "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float> >(int)",
@@ -227,6 +234,16 @@ def test_check_launches_passes_a_whole_trace_and_fails_a_lost_launch():
         profiling.check_launches(names + [H100_NAMES["fused_dw_adamw_xt"]], zero, after)
 
 
+def test_check_launches_counts_the_gathers_two_passes_as_one_call():
+    zero = {k: 0 for k in H100_NAMES}
+    after = dict(zero, gather_rows_bwd=2)
+    names = [H100_NAMES["gather_rows_bwd"], GATHER_SUM_NAME] * 2 + LIBRARY_NAMES
+    assert profiling.profiled_launches(names)["gather_rows_bwd"] == 4
+    assert profiling.check_launches(names, zero, after) == {"gather_rows_bwd": 2}
+    with pytest.raises(AssertionError, match="gather_rows_bwd"):
+        profiling.check_launches(names[1:], zero, after)
+
+
 def test_device_kernels_are_the_kernel_records_of_the_newest_trace(tmp_path):
     old = tmp_path / "a" / "old.pt.trace.json"
     old.parent.mkdir()
@@ -242,8 +259,11 @@ def test_device_kernels_are_the_kernel_records_of_the_newest_trace(tmp_path):
 def test_launch_counts_splits_the_attention_entries(monkeypatch):
     for name, value in (("fused_attention", 5), ("fused_attention2", 2), ("attention_mma_fwd", 2),
                         ("attention_wide_fwd", 1), ("fused_attention_backward", 4),
-                        ("fused_attention2_backward", 0), ("attention_mma_bwd", 1), ("attention_wide_bwd", 1)):
+                        ("fused_attention2_backward", 0), ("attention_mma_bwd", 1), ("attention_wide_bwd", 1),
+                        ("gather_rows_backward", 2)):
         monkeypatch.setattr(getattr(ops, name), "launches", value)
+    monkeypatch.setattr(ops.gather_rows_backward, "ordered_launches", 1)
     counts = profiling.launch_counts()
     assert set(counts) == set(profiling.KERNEL_NAMES)
+    assert counts["gather_rows_bwd"] == 2 and counts["gather_rows_bwd_ordered"] == 1
     assert counts["attention_f32_fwd"] == 4 and counts["attention_f32_bwd"] == 2
