@@ -8,7 +8,9 @@ their place. Busy time is the union of the intervals of the device's
 kernel, memcpy and memset records; the span runs from the first such
 record's start to the last one's end; an idle gap is named by the innermost
 host operation open across it. The arithmetic is a copy of the program's
-``tools/trace_step.py``.
+``tools/trace_step.py``. ``busy_s`` traces the device's activity alone,
+over a whole window, and reads its busy time from the profiler's records
+in memory.
 """
 
 from __future__ import annotations
@@ -25,6 +27,12 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 
 
+def _opening() -> None:
+    for _ in range(OPENING_KERNELS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def traced(fn) -> list | None:
     """Run ``fn()`` under the profiler and return the Chrome trace's events
     (None where no trace came out). The trace is written to a temporary
@@ -37,9 +45,7 @@ def traced(fn) -> list | None:
         path = os.path.join(tmp, "trace.json")
         with profile(activities=activities) as prof:
             if cuda:
-                for _ in range(OPENING_KERNELS):
-                    torch.cuda._sleep(1000)
-                torch.cuda.synchronize()
+                _opening()
             fn()
             if cuda:
                 torch.cuda.synchronize()
@@ -58,6 +64,31 @@ def _merged(intervals: list[tuple[float, float]]) -> list[list[float]]:
         else:
             merged.append([a, b])
     return merged
+
+
+def device_intervals(records) -> list[tuple[int, int]]:
+    """(start, end) in ns of the device's kernel, memcpy and memset records
+    among the profiler's ``records`` (``kineto_results.events()``), the
+    opening kernels left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.start_ns(), e.end_ns()) for e in records
+            if e.device_type() == cuda and OPENING_NAME not in e.name()
+            and (not hasattr(e, "activity_type") or e.activity_type() in DEVICE_CATS)]
+
+
+def busy_s(fn) -> float | None:
+    """Run ``fn()`` with the device's activity alone traced, which costs the
+    host little over a long stretch, and return the device's busy seconds
+    in it: the union of its kernel, memcpy and memset intervals. None where
+    no device record came out. Nothing is written to disk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _opening()
+        fn()
+        torch.cuda.synchronize()
+    merged = _merged(device_intervals(prof.profiler.kineto_results.events()))
+    return sum(b - a for a, b in merged) / 1e9 if merged else None
 
 
 def summarize(events: list, top: int = 10) -> dict | None:

@@ -45,6 +45,7 @@ class Cell:
     root: Path = ROOT  # the checkout whose perfbench/ holds the cell's files
     program_changes: dict | None = None  # a control: the program's own lower-precision path
     reference_as_program: str | None = None  # a control: the reference at this precision stands in
+    e2e: tuple = ()  # the names of the end-to-end metrics that the cell reports
 
 
 def load_spec(root: Path = ROOT) -> dict:
@@ -72,7 +73,8 @@ def load_cell(name: str, seed: int, seconds: float, trace: bool, device, t0: flo
     cfg = {**cfg, **o.get("top", {}), "model": {**cfg["model"], **o.get("model", {})},
            "train": {**cfg["train"], **o.get("train", {})}}
     mix = {**mix, **o.get("mix", {})}
-    return Cell(name, cfg, mix, limits["limits"], seed, seconds, trace, device, t0, root)
+    e2e = tuple(m["name"] for m in spec["end_to_end"] if _applies(m, name, spec))
+    return Cell(name, cfg, mix, limits["limits"], seed, seconds, trace, device, t0, root, e2e=e2e)
 
 
 def _load(path: Path, name: str):

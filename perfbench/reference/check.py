@@ -126,7 +126,7 @@ def first_reference(params0: dict, rows: list, data: tuple, gen_state: torch.Ten
     drawn from a generator set to ``gen_state`` -> {"losses", "grad_norms",
     "change_norms"}."""
     common.plain_numerics()
-    device = params0["out_w"].device
+    device = data[0].device
     params = {k: v.detach().clone().requires_grad_() for k, v in params0.items()}
     mu_dt = torch.bfloat16 if t.get("adam_mu_bf16", True) else torch.float32
     mu = {k: torch.zeros_like(v, dtype=mu_dt) for k, v in params.items()}

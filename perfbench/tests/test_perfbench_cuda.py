@@ -25,3 +25,5 @@ def test_run_prints_a_result_line(name):
     assert set(line) >= {"correct", "attempted", "failed", "metrics", "device"}
     assert line["device"]["platform"] == "gpu" and line["device"]["count"] == 1
     assert list(line)[-1] == "checked"
+    spec = harness.load_spec()
+    assert set(line["metrics"]) == {m["name"] for m in spec["end_to_end"] if harness._applies(m, name, spec)}

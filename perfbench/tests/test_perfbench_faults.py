@@ -4,6 +4,8 @@ fault of perfbench/faults.py planted in the program underneath, and sees
 ``correct`` come out false. The control, the program one precision lower
 or the reference in its place, reads far above the program."""
 
+import json
+
 import pytest
 
 from perfbench import faults, harness
@@ -45,11 +47,12 @@ def test_a_late_fault_shows_only_in_the_checked_call(fault):
     assert not check.passes(call, {k: c.limits[k] for k in call})
 
 
-@pytest.mark.parametrize("name, control", [
-    ("flagship.train_corpus", {"program_changes": {"bf16_frontend": True}}),
-    ("hc307m.train_corpus", {"reference_as_program": "fp8"}),
-])
-def test_control_reads_far_above_the_program(name, control):
+@pytest.mark.parametrize("name", TRAIN)
+def test_control_reads_far_above_the_program(name):
+    """The control named in the cell's limits file, as ``readings.py`` runs
+    it: ``{"program": {field: value}}`` or ``{"reference": precision}``."""
+    control = json.loads((harness.HERE / "limits" / f"{name}.json").read_text())["control"]
     sound = harness.run_cell(cell(name))["numbers"]
-    low = harness.run_cell(cell(name, **control))["numbers"]
+    low = harness.run_cell(cell(name, program_changes=control.get("program"),
+                                reference_as_program=control.get("reference")))["numbers"]
     assert any(low[k] >= 3 * sound[k] and low[k] > 0 for k in sound), (sound, low)

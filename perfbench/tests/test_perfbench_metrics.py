@@ -26,6 +26,43 @@ def test_summarize_canned_trace():
     assert s["idle_gaps"] == [["aten::index", pytest.approx(150e-6)]]
 
 
+class _Record:
+    """A record of the profiler's ``kineto_results.events()``."""
+
+    def __init__(self, name, device, kind, start, end):
+        self._v = name, device, kind, start, end
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        return self._v[1]
+
+    def activity_type(self):
+        return self._v[2]
+
+    def start_ns(self):
+        return self._v[3]
+
+    def end_ns(self):
+        return self._v[4]
+
+
+def test_device_intervals_keep_the_device_records():
+    """The same records as the canned trace's, read from the profiler's
+    memory: the device's kernels and copies, not the opening kernels nor a
+    host record."""
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    records = [_Record(e["name"], cuda if e["pid"] == 1 else cpu, e["cat"], e["ts"] * 1000,
+                       (e["ts"] + e["dur"]) * 1000) for e in EVENTS if e["ph"] == "X"]
+    records.append(_Record("gpu annotation", cuda, "gpu_user_annotation", 0, 10**6))
+    got = devtrace.device_intervals(records)
+    assert got == [(0, 100_000), (50_000, 150_000), (300_000, 400_000)]
+    assert sum(b - a for a, b in devtrace._merged(got)) / 1e9 == pytest.approx(devtrace.summarize(EVENTS)["busy_s"])
+
+
 def test_no_device_records_read_nothing():
     assert devtrace.summarize([e for e in EVENTS if e.get("cat") == "cpu_op"]) is None
 
@@ -50,8 +87,11 @@ def test_readers_give_known_values():
     from perfbench.counts import linear as model
     least = model.least_seconds(model.train_functions(train["model"], train["train"]))
     assert read["kernel_roofline.train"](train) == pytest.approx(100 * least / 125e-6)
+    assert read["kernel_roofline.train_device"](train) == read["kernel_roofline.train"](train)
+    assert read["mfu.train_device"](train) == pytest.approx(100 * 3 * 248_268_800 * 1024 / 125e-6 / 989e12)
+    assert read["train_sheets_per_s.host_paced"](train) == 70_000.0
     # Each reader reads nothing in another kind of cell, or without a trace.
     for name, fn in read.items():
         assert fn(other) is None
-        if "roofline" in name or "idle" in name:
+        if "roofline" in name or "idle" in name or name == "mfu.train_device":
             assert fn({**train, "trace": None}) is None

@@ -90,7 +90,7 @@ def test_no_result_where_a_reader_loads_jax(tmp_path):
     (root / "perfbench/metrics/loads_jax.train.py").write_text("import jax  # noqa: F401\n\n\n"
                                                                "def read(run):\n    return 1.0\n")
     spec["per_layer"].append({"name": "loads_jax.train", "unit": "1", "better": "higher", "source": "host_clock",
-                              "layer": "training step", "moves": "train_sheets_per_s"})
+                              "layer": "training step", "moves": "setup_s"})
     loaded = run()
     assert loaded.returncode != 0 and not loaded.stdout.strip()
     assert "jax" in loaded.stderr

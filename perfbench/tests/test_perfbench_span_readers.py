@@ -6,7 +6,8 @@ import pytest
 
 from perfbench import harness
 
-READERS = ["forward_ms.train", "backward_ms.train", "update_ms.train", "first_step_s.train"]
+PHASES = ["forward_ms", "backward_ms", "update_ms"]
+READERS = [f"{p}.{suffix}" for suffix in ("train", "train_device") for p in PHASES] + ["first_step_s.train"]
 TRAIN = {"kind": "train"}
 
 
@@ -26,7 +27,8 @@ RECORDS = [
                                      _rec("train.backward", [9.0, 11.0, 10.0][k]),
                                      _rec("train.update", [2.0, 2.2, 2.1][k]))],
 ]
-EXPECTED = {"forward_ms.train": 1.2, "backward_ms.train": 10.0, "update_ms.train": 2.1, "first_step_s.train": 7.5}
+EXPECTED = {f"{p}.{suffix}": v for suffix in ("train", "train_device")
+            for p, v in zip(PHASES, (1.2, 10.0, 2.1))} | {"first_step_s.train": 7.5}
 
 
 @pytest.fixture
@@ -66,9 +68,17 @@ def test_a_reader_reads_nothing_where_spans_were_dropped(name, profiling, monkey
 
 
 def test_the_readers_are_declared():
+    """Each phase is read in every training cell, under the name whose
+    end-to-end metric the cell reports; the first step in all of them."""
     spec = harness.load_spec()
     declared = {m["name"]: m for m in spec["per_layer"]}
+    cells = [w["name"] for w in spec["workloads"]]
     for name in READERS:
         assert declared[name]["source"] == "program_span"
-        assert declared[name]["workloads"] == ["flagship.train_corpus", "hc307m.train_corpus"]
+        for w in declared[name]["workloads"]:
+            assert harness._applies(next(m for m in spec["end_to_end"] if m["name"] == declared[name]["moves"]),
+                                    w, spec)
+    for p in PHASES:
+        assert sorted(declared[f"{p}.train"]["workloads"] + declared[f"{p}.train_device"]["workloads"]) == cells
     assert declared["first_step_s.train"]["moves"] == "setup_s"
+    assert declared["first_step_s.train"]["workloads"] == cells

@@ -1,5 +1,6 @@
-"""A cell cut to a size the CPU runs in seconds: narrow widths, a batch of
-16, a corpus of 96 strings. For the CPU tests only; the benchmark's cells
+"""A cell cut to a size the CPU runs in seconds: narrow widths (a conv
+decoder's channels too; the linear decoder has none), a batch of 16, a
+corpus of 96 strings. For the CPU tests only; the benchmark's cells
 run at their configurations' sizes."""
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 from perfbench import harness
 
 TINY = {
-    "model": {"embedding_dim": 8, "num_heads": 2, "hidden_dim": 4},
+    "model": {"embedding_dim": 8, "num_heads": 2, "hidden_dim": 4, "decoder_channels": (8, 8, 4, 4, 2)},
     "train": {"batch_size": 16},
     "top": {"num_samples": 96},
     "mix": {"num_samples": 96, "steps_per_call": 2, "trace_steps": 2},

@@ -7,9 +7,12 @@ of one step each, and through ``check_calls`` calls of the window's shape
 (the first warms them up), and reads each for the check (see
 ``reference/check.py``). The same state trains in the window: calls of
 ``steps_per_call`` steps, each a new batch of the epoch's shuffle, until
-``seconds`` have passed; the window ends in a device sync. With a trace, a
-short stretch of ``trace_steps`` steps then runs under the profiler. Then
-the program's state is freed and the reference takes the checked steps.
+``seconds`` have passed; the window ends in a device sync. A cell that
+reports ``train_device_ms_per_step`` traces the device through the whole
+untraced window: the union of its kernel, memcpy and memset intervals over
+the window's steps. With a trace, a short stretch of ``trace_steps`` steps
+then runs under the profiler. Then the program's state is freed and the
+reference takes the checked steps.
 """
 
 from __future__ import annotations
@@ -91,15 +94,28 @@ def run(cell) -> dict:
     _sync(device)
     setup_s = time.perf_counter() - cell.t0
 
-    host_s, calls = 0.0, []
-    t_start = time.perf_counter()
-    while time.perf_counter() - t_start < cell.seconds:
-        idx = stream.take(per_call)
-        h0 = time.perf_counter()
-        calls.append((epoch(idx), idx.shape[0]))
-        host_s += time.perf_counter() - h0
-    _sync(device)
-    window_s = time.perf_counter() - t_start
+    host_s, calls, window_s = 0.0, [], 0.0
+
+    def window():
+        nonlocal host_s, window_s
+        t_start = time.perf_counter()
+        while time.perf_counter() - t_start < cell.seconds:
+            idx = stream.take(per_call)
+            h0 = time.perf_counter()
+            calls.append((epoch(idx), idx.shape[0]))
+            host_s += time.perf_counter() - h0
+        _sync(device)
+        window_s = time.perf_counter() - t_start
+
+    # A cell that reports the device's time a step traces its whole window,
+    # the device's activity alone, so that every step of it counts.
+    busy_s = None
+    if "train_device_ms_per_step" in cell.e2e and not cell.trace and device.type == "cuda":
+        busy_s = devtrace.busy_s(window)
+        if busy_s is None:
+            raise RuntimeError("the device trace of the window holds no device record")
+    else:
+        window()
     n_steps = sum(k for _, k in calls)
     # A call whose mean loss is not finite counts all its steps as failed.
     finite = torch.isfinite(torch.stack([loss for loss, _ in calls])).tolist()
@@ -134,8 +150,11 @@ def run(cell) -> dict:
         reading = reference(cell.reference_as_program)
     reference_s = time.perf_counter() - t_ref
     sheets_per_s = n_steps * tcfg.batch_size / window_s
+    e2e = {"train_sheets_per_s": sheets_per_s, "setup_s": setup_s}
+    if busy_s is not None:
+        e2e["train_device_ms_per_step"] = 1e3 * busy_s / n_steps
     return {
-        "e2e": {"train_sheets_per_s": sheets_per_s, "setup_s": setup_s},
+        "e2e": e2e,
         "layer": {"kind": "train", "model": cfg["model"], "train": cfg["train"], "steps": n_steps,
                   "host_s": host_s, "sheets_per_s": sheets_per_s, "trace": trace,
                   "traced_steps": mix["trace_steps"]},
